@@ -1,0 +1,162 @@
+"""EKF primitives (port of plviwo_tpu/core/ekf.py), batch-first.
+
+Every function takes the leading sequence axis B on its tensors.  Padded or
+rejected measurement rows are masked with `torch.where` (never multiplied
+away), so a NaN in a masked row cannot poison the update.  Factorizations
+run in native float64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import lie
+from ..ops.linalg import chol_equilibrated, chol_unrolled, solve_psd
+from .state import FilterState, free_clone_slot
+
+
+def _sym(A):
+    return 0.5 * (A + A.transpose(-1, -2))
+
+
+def propagate_cov(cov, phi15, qd15):
+    """IMU-block covariance propagation: P_II' = Phi P_II Phi^T + Qd,
+    P_Ix' = Phi P_Ix.  cov (B,D,D), phi15/qd15 (B,15,15)."""
+    pii = cov[:, :15, :15]
+    new_pix = phi15 @ cov[:, :15, :]
+    cov = cov.clone()
+    cov[:, :15, :] = new_pix
+    cov[:, :, :15] = new_pix.transpose(-1, -2)
+    cov[:, :15, :15] = phi15 @ pii @ phi15.transpose(-1, -2) + qd15
+    return _sym(cov)
+
+
+def ekf_update(cov, H, r, r_diag, mask):
+    """Masked EKF update.  cov (B,D,D), H (B,M,D), r/r_diag/mask (B,M).
+    Returns (dx (B,D), new_cov (B,D,D))."""
+    Hm = torch.where(mask[..., None], H, 0.0)
+    rm = torch.where(mask, r, 0.0)
+    Rm = torch.where(mask, r_diag, 1.0)
+    PHt = cov @ Hm.transpose(-1, -2)  # (B,D,M)
+    S = _sym(Hm @ PHt + torch.diag_embed(Rm))
+    Kt = solve_psd(S, PHt.transpose(-1, -2))  # (B,M,D)
+    dx = (Kt.transpose(-1, -2) @ rm[..., None])[..., 0]
+    new_cov = cov - PHt @ Kt
+    return dx, _sym(new_cov)
+
+
+def whiten(H, r, R_full):
+    """Whiten a small dense-noise system to unit noise: (H', r') with
+    L [H' r'] = [H r], L = chol(R_full).  H (B,n,D), r (B,n), R_full (B,n,n)."""
+    L = chol_unrolled(R_full)
+    n = L.shape[-1]
+    Bm = torch.cat([H, r[..., None]], dim=-1)
+    ys = []
+    for j in range(n):
+        acc = Bm[..., j, :]
+        for i in range(j):
+            acc = acc - L[..., j, i, None] * ys[i]
+        ys.append(acc / L[..., j, j, None])
+    Y = torch.stack(ys, dim=-2)
+    return Y[..., :-1], Y[..., -1]
+
+
+def chi2(cov, H, r, r_diag, mask):
+    """chi^2 = r^T (H P H^T + R)^-1 r over the masked rows, per sequence."""
+    Hm = torch.where(mask[..., None], H, 0.0)
+    rm = torch.where(mask, r, 0.0)
+    Rm = torch.where(mask, r_diag, 1.0)
+    S = _sym(Hm @ cov @ Hm.transpose(-1, -2) + torch.diag_embed(Rm))
+    return torch.sum(rm * solve_psd(S, rm), dim=-1)
+
+
+def _dq(th):
+    """Small-angle JPL error quaternion [th/2, 1], normalized. th: (...,3)."""
+    return lie.quat_norm(torch.cat([0.5 * th, torch.ones_like(th[..., :1])], dim=-1))
+
+
+def apply_dx(state: FilterState, dx) -> FilterState:
+    """Apply an error-state correction dx (B,D) to the mean (FEJ untouched);
+    quaternions take the JPL left-multiplicative update q' = dq (x) q."""
+    lo = state.layout
+    B, C = dx.shape[0], lo.n_clones
+    out = dict(
+        q=lie.quat_multiply(_dq(dx[:, lo.IMU_TH:lo.IMU_TH + 3]), state.q),
+        p=state.p + dx[:, lo.IMU_P:lo.IMU_P + 3],
+        v=state.v + dx[:, lo.IMU_V:lo.IMU_V + 3],
+        bg=state.bg + dx[:, lo.IMU_BG:lo.IMU_BG + 3],
+        ba=state.ba + dx[:, lo.IMU_BA:lo.IMU_BA + 3],
+    )
+    dclone = dx[:, lo.clone_off:lo.clone_off + 6 * C].reshape(B, C, 6)
+    out["clone_q"] = lie.quat_multiply(_dq(dclone[..., 0:3]), state.clone_q)
+    out["clone_p"] = state.clone_p + dclone[..., 3:6]
+
+    ccd = lo.CAM_CALIB_DIM
+    dcam = dx[:, lo.cam_off:lo.cam_off + ccd * lo.n_cams].reshape(B, lo.n_cams, ccd)
+    out["cam_dt"] = state.cam_dt + dcam[..., 0]
+    out["cam_q"] = lie.quat_multiply(_dq(dcam[..., 1:4]), state.cam_q)
+    out["cam_p"] = state.cam_p + dcam[..., 4:7]
+    out["cam_k"] = state.cam_k + dcam[..., 7:15]
+
+    if lo.use_wheel:
+        out["wheel_dt"] = state.wheel_dt + dx[:, lo.wheel_dt]
+        out["wheel_q"] = lie.quat_multiply(
+            _dq(dx[:, lo.wheel_ext:lo.wheel_ext + 3]), state.wheel_q)
+        out["wheel_p"] = state.wheel_p + dx[:, lo.wheel_ext + 3:lo.wheel_ext + 6]
+        out["wheel_k"] = state.wheel_k + dx[:, lo.wheel_int:lo.wheel_int + 3]
+    if lo.n_gps > 0:
+        gcd = lo.GPS_CALIB_DIM
+        dgps = dx[:, lo.gps_off:lo.gps_off + gcd * lo.n_gps].reshape(B, lo.n_gps, gcd)
+        out["gps_dt"] = state.gps_dt + dgps[..., 0]
+        out["gps_p"] = state.gps_p + dgps[..., 1:4]
+        out["wtoe_th"] = state.wtoe_th + dx[:, lo.wtoe_off]
+        out["wtoe_p"] = state.wtoe_p + dx[:, lo.wtoe_off + 1:lo.wtoe_off + 4]
+    if lo.max_slam > 0:
+        dslam = dx[:, lo.slam_off:lo.slam_off + 3 * lo.max_slam]
+        out["slam_p"] = state.slam_p + dslam.reshape(B, lo.max_slam, 3)
+    return state.replace(**out)
+
+
+def update(state: FilterState, H, r, r_diag, mask) -> FilterState:
+    """Full EKF update: covariance + mean."""
+    dx, new_cov = ekf_update(state.cov, H, r, r_diag, mask)
+    return apply_dx(state, dx).replace(cov=new_cov)
+
+
+def augment_clone(state: FilterState) -> FilterState:
+    """Insert a stochastic clone of the current IMU pose into each sequence's
+    first free slot (the caller marginalizes first so one exists)."""
+    lo = state.layout
+    cov = state.cov
+    B, D = cov.shape[0], cov.shape[-1]
+    slot = free_clone_slot(state)  # (B,)
+    idx = lo.clone_off + 6 * slot[:, None] + torch.arange(6, device=cov.device)  # (B,6)
+    cov = cov.scatter(1, idx[:, :, None].expand(B, 6, D), cov[:, 0:6, :])
+    # the first 6 columns, read after the row write, include the new rows
+    cov = cov.scatter(2, idx[:, None, :].expand(B, D, 6), cov[:, :, 0:6])
+
+    sel = torch.arange(lo.n_clones, device=cov.device)[None, :] == slot[:, None]  # (B,C)
+    s3 = sel[..., None]
+    return state.replace(
+        clone_q=torch.where(s3, state.q[:, None, :], state.clone_q),
+        clone_p=torch.where(s3, state.p[:, None, :], state.clone_p),
+        clone_q_fej=torch.where(s3, state.q_fej[:, None, :], state.clone_q_fej),
+        clone_p_fej=torch.where(s3, state.p_fej[:, None, :], state.clone_p_fej),
+        clone_t=torch.where(sel, state.time[:, None], state.clone_t),
+        clone_valid=state.clone_valid | sel,
+        clone_keyframe=state.clone_keyframe & ~sel,
+        cov=cov,
+    )
+
+
+def compress_from_gram(G, c):
+    """(G = H^T H, c = H^T r) -> compressed rows (H' = L^T, r' = L^-1 c).
+
+    G (B,D,D), c (B,D), float64.  The equilibrated, jittered factor
+    regularizes null directions; those rows get rc = 0 and are masked
+    invalid (exact no-ops in the update)."""
+    L, valid = chol_equilibrated(G)
+    rc = torch.linalg.solve_triangular(L, c[..., None], upper=False)[..., 0]
+    rc = torch.where(valid & torch.isfinite(rc), rc, 0.0)
+    Hc = L.transpose(-1, -2) * valid[..., None, :].to(G.dtype)
+    return Hc, rc, valid

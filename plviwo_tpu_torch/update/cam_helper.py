@@ -1,0 +1,230 @@
+"""Camera point-measurement math (port of plviwo_tpu/update/cam_helper.py).
+
+Batch-first: every tensor carries the sequence axis B in front of the JAX
+shapes, e.g. observations are (B, F, O, ...) and clone rings (B, C, ...).
+
+Conventions: clone pose q_GtoI (JPL), p_IinG; extrinsic q_ItoC, p_IinC;
+p_C = R_ItoC R_GtoI (p_f - p_I) + p_IinC; residual r = uv_meas - distort(p_C)
+in raw pixels.  Jacobians are evaluated at the clone FEJ values.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import cam as cam_ops
+from ..ops import lie
+from ..ops.jac import jacfwd_batched
+from ..ops.linalg import chi2_quadform, eigvals_sym3x3, solve3x3
+
+
+def _mv(A, x):
+    """Batched matrix-vector product with broadcasting: (...,n,m) (...,m)."""
+    return (A @ x[..., None])[..., 0]
+
+
+def _eye3(like):
+    return torch.eye(3, dtype=like.dtype, device=like.device)
+
+
+def one_hot(idx, n: int, dtype):
+    """(...,) integer indices -> (...,n) one-hot rows (a comparison, so no
+    index check reads back to the host)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def repeat_each(x, n: int):
+    """Repeat every entry of the last axis n times: (...,K) -> (...,nK)."""
+    return x[..., None].expand(x.shape + (n,)).reshape(x.shape[:-1] + (-1,))
+
+
+def gather_slots(ring, slot):
+    """ring (B,C,...) indexed by slot (B,...) -> (B,...,...)."""
+    bidx = torch.arange(ring.shape[0], device=ring.device)
+    bidx = bidx.view((-1,) + (1,) * (slot.ndim - 1))
+    return ring[bidx, slot]
+
+
+def _cam_pose_in_g(q_clone, p_clone, cam_q, cam_p):
+    """R_GtoC (...,3,3) and camera center c in G (...,3)."""
+    R_GtoC = lie.quat_2_rot(cam_q) @ lie.quat_2_rot(q_clone)
+    return R_GtoC, p_clone - _mv(R_GtoC.transpose(-1, -2), cam_p)
+
+
+def triangulate_batch(obs_uvn, obs_q, obs_p, obs_valid, cam_q, cam_p,
+                      min_dist=0.1, max_dist=200.0, max_cond=10000.0,
+                      gn_iters: int = 5):
+    """Batched linear triangulation + fixed-iteration Gauss-Newton refine.
+
+    obs_uvn (B,F,O,2), obs_q (B,F,O,4), obs_p (B,F,O,3), obs_valid (B,F,O),
+    cam_q (B,4), cam_p (B,3).  Returns p_f (B,F,3), ok (B,F), avg_err (B,F)."""
+    cq = cam_q[:, None, None, :]
+    cp = cam_p[:, None, None, :]
+    R_GtoC, c = _cam_pose_in_g(obs_q, obs_p, cq, cp)
+    b_C = torch.cat([obs_uvn, torch.ones_like(obs_uvn[..., :1])], dim=-1)
+    b_C = b_C / torch.linalg.vector_norm(b_C, dim=-1, keepdim=True)
+    b_G = _mv(R_GtoC.transpose(-1, -2), b_C)
+
+    eye = _eye3(obs_uvn)
+    m = obs_valid[..., None, None]
+    P_perp = torch.where(m, eye - b_G[..., :, None] * b_G[..., None, :], 0.0)
+    A = torch.sum(P_perp, dim=2)
+    rhs = torch.sum(_mv(P_perp, c), dim=2)
+
+    eigs = eigvals_sym3x3(A)
+    cond = eigs[..., 2] / torch.clamp(eigs[..., 0], min=1e-12)
+    p_f = solve3x3(A + 1e-9 * eye, rhs)
+
+    vmask = obs_valid[..., None]
+
+    def reproj_err(p_f):
+        p_C = _mv(R_GtoC, p_f[:, :, None, :] - obs_p) + cp
+        z = torch.clamp(p_C[..., 2], min=1e-6)
+        e = torch.where(vmask, p_C[..., :2] / z[..., None] - obs_uvn, 0.0)
+        return e, p_C
+
+    for _ in range(gn_iters):
+        e, p_C = reproj_err(p_f)
+        z = torch.clamp(p_C[..., 2], min=1e-6)
+        x, y = p_C[..., 0], p_C[..., 1]
+        zero = torch.zeros_like(z)
+        dzn = torch.stack([
+            torch.stack([1.0 / z, zero, -x / z**2], -1),
+            torch.stack([zero, 1.0 / z, -y / z**2], -1),
+        ], -2)
+        J = torch.where(obs_valid[..., None, None], dzn @ R_GtoC, 0.0)  # (B,F,O,2,3)
+        JtJ = torch.einsum("bfoik,bfoil->bfkl", J, J) + 1e-6 * eye
+        Jte = torch.einsum("bfoik,bfoi->bfk", J, e)
+        p_f = p_f - solve3x3(JtJ, Jte)
+
+    e, p_C = reproj_err(p_f)
+    n_valid = torch.sum(obs_valid, dim=2)
+    avg_err = (torch.sum(torch.linalg.vector_norm(e, dim=-1), dim=2)
+               / torch.clamp(n_valid, min=1))
+    depths = p_C[..., 2]
+    depth_ok = torch.all(
+        torch.where(obs_valid, (depths > min_dist) & (depths < max_dist), True), dim=2)
+    ok = depth_ok & (cond < max_cond) & (n_valid >= 2)
+    ok = ok & torch.all(torch.isfinite(p_f), dim=-1)
+    return p_f, ok, avg_err
+
+
+def _scatter_clone_band(block, slot, n_clones, clone_off, D):
+    """Place per-observation clone Jacobian blocks (...,R,6) at their slot's
+    columns of a zero (...,R,D) row stack (one-hot over the clone ring)."""
+    onehot = one_hot(slot, n_clones, block.dtype)  # (...,C)
+    Hc = (onehot[..., None, :, None] * block[..., :, None, :]).flatten(-2)  # (...,R,6C)
+    pre = block.new_zeros(Hc.shape[:-1] + (clone_off,))
+    post = block.new_zeros(Hc.shape[:-1] + (D - clone_off - 6 * n_clones,))
+    return torch.cat([pre, Hc, post], dim=-1)
+
+
+def point_systems_batch(p_f, obs_uv, obs_slot, obs_valid,
+                        clone_q, clone_p, clone_q_fej, clone_p_fej,
+                        cam_q, cam_p, cam_k, model: int, n_clones: int,
+                        clone_off: int, D: int):
+    """Per-feature MSCKF linear systems (port of `_point_system_single`
+    mapped over features).  p_f (B,F,3), obs_uv (B,F,O,2), obs_slot/valid
+    (B,F,O), clone rings (B,C,.), cam_q (B,4), cam_p (B,3), cam_k (B,8).
+    Returns Hx (B,F,2O,D), Hf (B,F,2O,3), r (B,F,2O), rowmask (B,F,2O)."""
+    B, F, O = obs_slot.shape
+    R_ItoC = lie.quat_2_rot(cam_q)[:, None, None]  # (B,1,1,3,3)
+    cp = cam_p[:, None, None, :]
+    ck = cam_k[:, None, None, :]
+    pf = p_f[:, :, None, :]
+
+    q_cl, p_cl = gather_slots(clone_q, obs_slot), gather_slots(clone_p, obs_slot)
+    q_fe, p_fe = gather_slots(clone_q_fej, obs_slot), gather_slots(clone_p_fej, obs_slot)
+
+    # residual at the estimates
+    p_C = _mv(R_ItoC @ lie.quat_2_rot(q_cl), pf - p_cl) + cp
+    z = torch.clamp(p_C[..., 2], min=1e-6)
+    uv_pred = cam_ops.distort(p_C[..., :2] / z[..., None], ck, model)
+    r = (obs_uv - uv_pred).reshape(B, F, 2 * O)
+
+    # Jacobians at the FEJ values
+    R_GtoI_f = lie.quat_2_rot(q_fe)
+    R_GtoC_f = R_ItoC @ R_GtoI_f
+    p_C_f = _mv(R_GtoC_f, pf - p_fe) + cp
+    z_f = torch.clamp(p_C_f[..., 2], min=1e-6)
+    x_f, y_f = p_C_f[..., 0], p_C_f[..., 1]
+    zero = torch.zeros_like(z_f)
+    dzn_dpC = torch.stack([
+        torch.stack([1.0 / z_f, zero, -x_f / z_f**2], -1),
+        torch.stack([zero, 1.0 / z_f, -y_f / z_f**2], -1),
+    ], -2)  # (B,F,O,2,3)
+    # d(pixel)/d(zn) only: cam_ops.distort_jacobian would also take the
+    # intrinsics Jacobian, which the rows without calibration do not use
+    (duv_dzn,) = jacfwd_batched(
+        cam_ops.distort_radtan if model == cam_ops.RADTAN else cam_ops.distort_equi,
+        (p_C_f[..., :2] / z_f[..., None], ck), (0,))
+    dpix = duv_dzn @ dzn_dpC
+
+    pf_in_I = _mv(R_GtoI_f, pf - p_fe)
+    H_th = dpix @ (R_ItoC @ lie.skew(pf_in_I))
+    H_p = dpix @ (-R_GtoC_f)
+    Hf = dpix @ R_GtoC_f
+
+    block = torch.cat([H_th, H_p], dim=-1)  # (B,F,O,2,6)
+    Hx = _scatter_clone_band(block, obs_slot, n_clones, clone_off, D)
+    rowmask = repeat_each(obs_valid, 2)
+    return (Hx.reshape(B, F, 2 * O, D), Hf.reshape(B, F, 2 * O, 3), r, rowmask)
+
+
+def _nullspace(Hf, Hx, r):
+    """Left-nullspace projection of (Hx, r) against Hf (...,M,k) by k
+    Householder reflectors.  Returns (Hx2, r2, valid) with the M-k projected
+    rows rolled to the top and the trailing k rows marked invalid."""
+    M, k = Hf.shape[-2], Hf.shape[-1]
+    A = torch.cat([Hf, Hx, r[..., None]], dim=-1)
+    idx = torch.arange(M, device=A.device)
+    for j in range(k):
+        x = torch.where(idx >= j, A[..., :, j], 0.0)
+        nx = torch.linalg.vector_norm(x, dim=-1)
+        # never a zero sign: a zero pivot entry must still give alpha = -|x|
+        # (see plviwo_tpu.update.cam_helper._nullspace)
+        sgn = torch.where(x[..., j] >= 0.0, 1.0, -1.0).to(A.dtype)
+        alpha = -sgn * nx
+        v = x - alpha[..., None] * (idx == j).to(A.dtype)
+        nv = torch.linalg.vector_norm(v, dim=-1)
+        small = nv < 1e-12
+        v = v / torch.where(small, torch.ones_like(nv), nv)[..., None]
+        scale = torch.where(small, 0.0, 2.0).to(A.dtype)
+        A = A - scale[..., None, None] * v[..., :, None] * (v[..., None, :] @ A)
+    Hx2 = torch.roll(A[..., k:-1], -k, dims=-2)
+    r2 = torch.roll(A[..., -1], -k, dims=-1)
+    valid = torch.roll(idx >= k, -k, dims=0).expand(r2.shape)
+    return Hx2, r2, valid
+
+
+def msckf_project_and_gate(Hx, Hf, r, rowmask, cov, sigma2, chi2_table, chi2_mult):
+    """Nullspace-project each feature system and chi2-gate it — the plain
+    composition the gate kernel replaces, kept as a cross-check.
+
+    Hx (B,F,M,D), Hf (B,F,M,k), r/rowmask (B,F,M), cov (B,D,D); sigma2 a
+    scalar or a (B,F,M) per-row variance (the output is then pre-whitened);
+    chi2_table (K,) 0.95 quantiles by dof.  Returns Hn (B,F,M,D),
+    rn (B,F,M), rowvalid (B,F,M), feat_ok (B,F)."""
+    per_row = torch.is_tensor(sigma2) and sigma2.ndim == 3
+    Hx = torch.where(rowmask[..., None], Hx, 0.0)
+    Hf = torch.where(rowmask[..., None], Hf, 0.0)
+    r_m = torch.where(rowmask, r, 0.0)
+    if per_row:
+        w = 1.0 / torch.sqrt(torch.clamp(torch.where(rowmask, sigma2, 1.0), min=1e-12))
+        Hx, Hf, r_m = Hx * w[..., None], Hf * w[..., None], r_m * w
+        s_unit = 1.0
+    else:
+        s_unit = sigma2
+    Hn, rn, valid = _nullspace(Hf, Hx, r_m)
+    Hv = torch.where(valid[..., None], Hn, 0.0)
+    rv = torch.where(valid, rn, 0.0)
+    M = Hv.shape[-2]
+    eye = torch.eye(M, dtype=Hv.dtype, device=Hv.device)
+    S = Hv @ cov[:, None] @ Hv.transpose(-1, -2) + s_unit * eye
+    chi = chi2_quadform(S, rv)
+    k = Hf.shape[-1]
+    n_rows = torch.sum(rowmask, dim=-1)
+    dof = torch.clamp(n_rows - k, min=1, max=chi2_table.shape[0] - 1)
+    ok = (chi < chi2_table[dof] * chi2_mult) & (n_rows >= k + 2)
+    ok = ok & (torch.amax(torch.abs(r_m), dim=-1) < (15.0 if per_row else 20.0))
+    return Hv, rv, valid & ok[..., None], ok

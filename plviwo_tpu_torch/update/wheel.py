@@ -1,0 +1,217 @@
+"""Wheel-odometry rows (port of plviwo_tpu/update/wheel.py), batch-first.
+
+3D RK4 preintegration of the relative odometry-frame pose between two
+clones, with its noise covariance and intrinsic Jacobians, and the FEJ
+linear system against the two bounding clones.  The recursions are
+log-depth prefix scans and the 6x6 (Phi, Q) chain the JAX tree fold, as in
+the JAX version.  The 2D models and the time-offset calibration column are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.propagator import _blocks, _id_quat, _qdot, prefix_scan, quat_prefix, tree_fold
+from ..ops import lie
+from .cam_helper import _mv, gather_slots, one_hot
+
+F64 = torch.float64
+
+W2D_ANG, W2D_LIN, W2D_CEN, W3D_ANG, W3D_LIN, W3D_CEN = range(6)
+
+
+def _wv_from_meas(m1, m2, intr, type_code: int):
+    """Angular rate (about z) and forward velocity from samples (B,N);
+    intr (B,3) = [radius_left radius_right baseline]."""
+    rl, rr, b = intr[:, 0:1], intr[:, 1:2], intr[:, 2:3]
+    if type_code in (W2D_ANG, W3D_ANG):
+        return (m2 * rr - m1 * rl) / b, (m2 * rr + m1 * rl) / 2.0
+    if type_code in (W2D_LIN, W3D_LIN):
+        return (m2 - m1) / b, (m2 + m1) / 2.0
+    return m1, m2
+
+
+def _rk4_local(wh1, vh1, wh2, vh2, dt, dt_safe):
+    """Carry-free RK4 increments (dq, dp_l) of one step, batched over (...)."""
+    dt_ = dt[..., None]
+    w_alpha = (wh2 - wh1) / dt_safe[..., None]
+    v_jerk = (vh2 - vh1) / dt_safe[..., None]
+    dq_0 = _id_quat(wh1)
+
+    def u_of(dq, v):
+        return _mv(lie.quat_2_rot(dq).transpose(-1, -2), v)
+
+    k1_q = _qdot(dq_0, wh1) * dt_
+    u1 = u_of(dq_0, vh1)
+    w_h = wh1 + 0.5 * w_alpha * dt_
+    v_h = vh1 + 0.5 * v_jerk * dt_
+    dq_1 = lie.quat_norm(dq_0 + 0.5 * k1_q)
+    k2_q = _qdot(dq_1, w_h) * dt_
+    u2 = u_of(dq_1, v_h)
+    dq_2 = lie.quat_norm(dq_0 + 0.5 * k2_q)
+    k3_q = _qdot(dq_2, w_h) * dt_
+    u3 = u_of(dq_2, v_h)
+    w_h = wh1 + w_alpha * dt_
+    v_h = vh1 + v_jerk * dt_
+    dq_3 = lie.quat_norm(dq_0 + k3_q)
+    k4_q = _qdot(dq_3, w_h) * dt_
+    u4 = u_of(dq_3, v_h)
+    dq = lie.quat_norm(dq_0 + (k1_q + 2 * k2_q + 2 * k3_q + k4_q) / 6.0)
+    return dq, (u1 + 2 * u2 + 2 * u3 + u4) / 6.0 * dt_
+
+
+def preintegrate_3d(ts, m1s, m2s, intr, noise_w, noise_v, noise_p,
+                    type_code: int, dtype=F64):
+    """3D RK4 preintegration over padded stacks (repeated-last padding).
+
+    ts/m1s/m2s (B,N+1), intr (B,3).  dtype is the internal precision (the
+    interval-local math is safe in float32; dts are formed in float64
+    first).  Returns float64 (R_O0toO1 (B,3,3), p_O1inO0 (B,3), Cov (B,6,6),
+    dR_di (B,3,3), dp_di (B,3,3))."""
+    Bsz, N = ts.shape[0], ts.shape[1] - 1
+    dev = ts.device
+    dts = (ts[:, 1:] - ts[:, :-1]).to(dtype)
+    pad = dts <= 0
+    dt_safe = torch.where(pad, 1.0, dts)
+    m1s = m1s.to(dtype)
+    m2s = m2s.to(dtype)
+    intr = intr.to(dtype)
+    b = intr[:, 2:3]
+
+    w1s, v1s = _wv_from_meas(m1s[:, :-1], m2s[:, :-1], intr, type_code)
+    w2s, v2s = _wv_from_meas(m1s[:, 1:], m2s[:, 1:], intr, type_code)
+    z = torch.zeros_like(w1s)
+    w_hat1 = torch.stack([z, z, w1s], -1)
+    v_hat1 = torch.stack([v1s, z, z], -1)
+    w_hat2 = torch.stack([z, z, w2s], -1)
+    v_hat2 = torch.stack([v2s, z, z], -1)
+
+    dqs, dp_l = _rk4_local(w_hat1, v_hat1, w_hat2, v_hat2, dts, dt_safe)
+    dqs = torch.where(pad[..., None], _id_quat(dqs), dqs)
+    dp_l = torch.where(pad[..., None], 0.0, dp_l)
+
+    R_end = lie.quat_2_rot(quat_prefix(dqs))  # (B,N,3,3) end-of-step rotations
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    R_start = torch.cat([eye3.expand(Bsz, 1, 3, 3), R_end[:, :-1]], dim=1)
+    RTs = R_start.transpose(-1, -2)
+
+    ps = torch.cumsum(_mv(RTs, dp_l), dim=1)
+    p_start = torch.cat([ps.new_zeros(Bsz, 1, 3), ps[:, :-1]], dim=1)
+
+    # intrinsic Jacobians: affine recursion b_k = A_k b_{k-1} + bvec_k
+    zN = torch.zeros_like(w1s)
+    Hwx = torch.stack([
+        torch.stack([zN, zN, zN], -1),
+        torch.stack([zN, zN, zN], -1),
+        torch.stack([-m1s[:, :-1] / b, m2s[:, :-1] / b, -w1s / b], -1),
+    ], -2)
+    Hvx = torch.stack([
+        torch.stack([m1s[:, :-1] / 2.0, m2s[:, :-1] / 2.0, zN], -1),
+        torch.stack([zN, zN, zN], -1),
+        torch.stack([zN, zN, zN], -1),
+    ], -2)
+    u_steps = -w_hat1 * dts[..., None]
+    Hth = lie.jl_so3(u_steps) * dts[..., None, None]
+    padm = pad[..., None, None]
+    A = torch.where(padm, eye3, lie.exp_so3(u_steps))
+    bvec = torch.where(padm, 0.0, Hth @ Hwx)
+    _, b_pre = prefix_scan(lambda e, l: (l[0] @ e[0], l[0] @ e[1] + l[1]), (A, bvec))
+    dR_di = b_pre[:, -1]
+    dR_start = torch.cat([b_pre.new_zeros(Bsz, 1, 3, 3), b_pre[:, :-1]], dim=1)
+
+    skew_vdt = lie.skew(v_hat1 * dts[..., None])
+    dp_terms = -RTs @ skew_vdt @ dR_start + RTs @ Hvx * dts[..., None, None]
+    dp_di = torch.sum(torch.where(padm, 0.0, dp_terms), dim=1)
+
+    # noise covariance: per-step (Phi, Q) folded by the tree reduction
+    def full(x):
+        return torch.full((Bsz,), float(x), dtype=dtype, device=dev)
+
+    if type_code == W3D_ANG:
+        qd = [full(noise_w**2), full(noise_p**2), full(noise_p**2),
+              full(noise_w**2), full(noise_p**2), full(noise_p**2)]
+    elif type_code == W3D_LIN:
+        qd = [noise_v**2 / b[:, 0] ** 2, full(noise_p**2), full(noise_p**2),
+              full(noise_v**2 / 4.0), full(noise_p**2), full(noise_p**2)]
+    else:
+        qd = [full(noise_w**2), full(noise_p**2), full(noise_p**2),
+              full(noise_v**2), full(noise_p**2), full(noise_p**2)]
+    qdiag = torch.stack(qd, dim=-1)  # (B,6)
+
+    dloc = _mv(RTs, ps - p_start)
+    Z3 = torch.zeros_like(R_start)
+    I3 = eye3.expand(R_start.shape)
+    Phi_tr = _blocks([[R_end @ RTs, Z3], [-RTs @ lie.skew(dloc), I3]])
+    dtm = dts[..., None, None]
+    Phi_ns = _blocks([[dtm * I3, Z3], [Z3, RTs * dtm]])
+    Qd = Phi_ns @ (qdiag[:, None, :, None] / dt_safe[..., None, None]
+                   * Phi_ns.transpose(-1, -2))
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    Phi_tr = torch.where(padm, eye6, Phi_tr)
+    Qd = torch.where(padm, 0.0, Qd)
+    _, Cov = tree_fold(Phi_tr, Qd)
+
+    return (R_end[:, -1].to(F64), ps[:, -1].to(F64), Cov.to(F64),
+            dR_di.to(F64), dp_di.to(F64))
+
+
+def linear_system_3d(clone_q, clone_p, clone_q_fej, clone_p_fej, slot0, slot1,
+                     wheel_q, wheel_p, R_meas, p_meas, dR_di, dp_di,
+                     n_clones: int, clone_off: int, D: int,
+                     wheel_ext_off: int = 0, wheel_int_off: int = 0,
+                     do_calib_ext: bool = False, do_calib_int: bool = False):
+    """FEJ linear system of the 3D relative-pose wheel measurement.
+
+    Clone rings (B,C,.), slot0/slot1 (B,), wheel_q (B,4), wheel_p (B,3),
+    R_meas (B,3,3), p_meas (B,3).  Returns H (B,6,D), res (B,6)."""
+    R_ItoO = lie.quat_2_rot(wheel_q)
+    RIT = R_ItoO.transpose(-1, -2)
+    p_IinO = wheel_p
+    p_OinI = -_mv(RIT, p_IinO)
+
+    R0 = lie.quat_2_rot(gather_slots(clone_q, slot0))
+    R1 = lie.quat_2_rot(gather_slots(clone_q, slot1))
+    p0, p1 = gather_slots(clone_p, slot0), gather_slots(clone_p, slot1)
+    R0T, R1T = R0.transpose(-1, -2), R1.transpose(-1, -2)
+    R_est = R_ItoO @ R1 @ R0T @ RIT
+    res_r = -lie.log_so3(R_meas @ R_est.transpose(-1, -2))
+    p_est = _mv(R_ItoO @ R0, p1 + _mv(R1T, p_OinI) - p0 - _mv(R0T, p_OinI))
+    res = torch.cat([res_r, p_meas - p_est], dim=-1)
+
+    R0f = lie.quat_2_rot(gather_slots(clone_q_fej, slot0))
+    R1f = lie.quat_2_rot(gather_slots(clone_q_fej, slot1))
+    p0f, p1f = gather_slots(clone_p_fej, slot0), gather_slots(clone_p_fej, slot1)
+    R1fT = R1f.transpose(-1, -2)
+    RO0toO1 = R_ItoO @ R1f @ R0f.transpose(-1, -2) @ RIT
+    RO1toO0 = RO0toO1.transpose(-1, -2)
+
+    Z3 = torch.zeros_like(R0f)
+    dzr_dth0 = -R_ItoO @ R1f @ R0f.transpose(-1, -2)
+    dzp_dth0 = R_ItoO @ lie.skew(_mv(R0f, p1f) + _mv(R0f @ R1fT, p_OinI) - _mv(R0f, p0f))
+    dzp_dp0 = -R_ItoO @ R0f
+    dzp_dth1 = -R_ItoO @ R0f @ R1fT @ lie.skew(p_OinI)
+    dzp_dp1 = R_ItoO @ R0f
+    block0 = _blocks([[dzr_dth0, Z3], [dzp_dth0, dzp_dp0]])  # (B,6,6)
+    block1 = _blocks([[R_ItoO, Z3], [dzp_dth1, dzp_dp1]])
+
+    oh0 = one_hot(slot0, n_clones, F64)
+    oh1 = one_hot(slot1, n_clones, F64)
+    Hc = (oh0[:, None, :, None] * block0[:, :, None, :]
+          + oh1[:, None, :, None] * block1[:, :, None, :]).flatten(-2)
+    H = torch.cat([Hc.new_zeros(Hc.shape[0], 6, clone_off), Hc,
+                   Hc.new_zeros(Hc.shape[0], 6, D - clone_off - 6 * n_clones)], dim=-1)
+
+    if do_calib_ext or do_calib_int:
+        H = H.clone()
+    if do_calib_ext:
+        eye = torch.eye(3, dtype=F64, device=H.device)
+        H[:, 0:3, wheel_ext_off:wheel_ext_off + 3] = eye - RO0toO1
+        H[:, 3:6, wheel_ext_off:wheel_ext_off + 3] = (
+            lie.skew(_mv(R_ItoO @ R0f, p1f - p0f) - _mv(RO1toO0, p_IinO))
+            + RO1toO0 @ lie.skew(p_IinO))
+        H[:, 3:6, wheel_ext_off + 3:wheel_ext_off + 6] = -RO1toO0 + eye
+    if do_calib_int:
+        H[:, 0:3, wheel_int_off:wheel_int_off + 3] = -dR_di
+        H[:, 3:6, wheel_int_off:wheel_int_off + 3] = -dp_di
+    return H, res
