@@ -4,15 +4,27 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: requires torch.cuda; prints the card's name and power limit;
-  2. build: compiles the MSCKF gate/Gram kernel with nvcc (sm_90a);
-  3. kernel vs plain: `gram_gate` on the card against its plain PyTorch
-     version at the filter bench's shapes (B = 128, M = 40, D = 162;
-     points k = 3, F = 40 and lines k = 4, F = 16), with times;
-  4. main path: `fused_step_full` at the bench width (B = 128 sequences,
-     22 clones, 40 point tracks x 20 obs, 16 line tracks, 32 IMU and 32
-     wheel samples) — one step with real point, line and wheel rows and
-     exactly two kernel launches, the same step through the plain gate on
-     the card for comparison, then 20 chained steps timed as frames/s.
+  2. build: compiles every CUDA source of the port (the MSCKF gate/Gram
+     kernel and the pyramidal LK kernel) with nvcc for sm_90a;
+  3. gate/Gram kernel vs its plain PyTorch version at the filter bench's
+     shapes (B = 128, M = 40, D = 162; points k = 3, F = 40 and lines
+     k = 4, F = 16) and at the images-in frame's (k = 3, B = 64, F = 128,
+     M = 16, D = 124), with times and bounds;
+  4. LK kernel vs its plain version at the images-in frame's shapes
+     (B = 64, N = 128, 640 x 480, 3 levels, W = 15, 6 iterations) on two
+     consecutive simulator frames with per-sequence pixel noise;
+  5. filter-only path: `fused_step_full` at the bench width (B = 128, 22
+     clones, 40 point tracks x 20 obs, 16 line tracks, 32 IMU and 32 wheel
+     samples) — one step with real point, line and wheel rows and exactly
+     two gate/Gram launches, the same step with the plain gate, then
+     chained steps timed as frames/s;
+  6. images-in path: `core.frame.fused_frame` (mono points + wheel, as
+     `VioSystem.feed_image` runs by default) at the bench's images-in width
+     (B = 64 sequences, 640 x 480, 128 slots x 8 obs, D = 124) on the
+     port's simulator: 6 warm-up and 12 timed frames with one LK and one
+     gate/Gram launch each, accepted point and wheel rows, every sequence
+     within 0.45 m of ground truth; the same 18 frames through the plain
+     LK give the same tracked count and accepted total within 1%.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
 JAX.
@@ -30,9 +42,14 @@ import numpy as np
 
 # the filter bench's width (bench.py: bench_filter_only)
 B, N_CLONES, F_PTS, N_OBS, L_LINES, IMU_N, N_WHEEL = 128, 22, 40, 20, 16, 32, 32
-N_CHAINED = 20
+N_CHAINED = 10
 M_ROWS = 2 * N_OBS
 SIGMA_PIX, CHI2_MULT = 1.0, 1.0
+# the images-in width (bench.py: bench_images_in, lines and GPS off)
+B_IMG, H_IMG, W_IMG, N_PTS, MAX_OBS, GRID = 64, 480, 640, 128, 8, (16, 12)
+N_WARM, N_TIMED = 6, 12
+# H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 def card_line() -> str:
@@ -72,46 +89,148 @@ def cuda_ms(fn, n_iter=20):
     return t0.elapsed_time(t1) / n_iter
 
 
-def phase_kernel(k, F, D, dev):
-    """Kernel vs plain version at one of the main path's shapes."""
+def bound_ms(n_bytes, n_ops):
+    """Least time on the card: bytes over the memory rate or FP32 operations
+    over the peak rate, whichever is longer.  Returns (ms, bound_by)."""
+    tb, to = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def gram_bound(rowmask, ok, D, k):
+    """Bound of one gate/Gram call from what its inputs need: the valid rows
+    of Hx, Hf, r, w (and every mask byte), the covariances, the outputs;
+    per feature with n >= k + 2 valid rows the Householder sweeps, Hv cov,
+    the symmetric half of S, the Cholesky and solve, and for accepted
+    features the symmetric half of the Gram [Hv | rv]^T [Hv | rv]."""
+    Bn, F, M = rowmask.shape
+    n = rowmask.sum(-1).double()
+    rows = float(n.sum())
+    n_bytes = (rows * (D + k + 2) * 4 + Bn * F * M + Bn * D * D * 4 + (M + 1) * 4
+               + Bn * D * D * 4 + Bn * D * 4 + Bn * F * 5)
+    live = n >= k + 2
+    p = (n - k).clamp(min=0)
+    ops = (2 * n * (k + D + 1) + k * 4 * n * (k + D + 1) + p * D * D * 2
+           + p * (p + 1) * D + p**3 / 3 + p * p)
+    ops = float((ops * live).sum() + (p * (D + 1) * (D + 2) * ok).sum())
+    return bound_ms(n_bytes, ops)
+
+
+def phase_gram(k, Bn, F, M, D, dev):
+    """gate/Gram kernel vs plain version at one of the main paths' shapes."""
     import torch
 
     from plviwo_tpu_torch.core.step import _chi2_table32
     from plviwo_tpu_torch.ops.msckf_kernel import gram_gate, gram_gate_plain
 
-    rng = np.random.default_rng(10 + k)
+    rng = np.random.default_rng(10 + k + M)
     Hx, Hf, r, rowmask, cov = (torch.as_tensor(a, device=dev)
-                               for a in random_systems(rng, B, F, M_ROWS, D, k))
+                               for a in random_systems(rng, Bn, F, M, D, k))
     sigma, chi2_mult = 1.3, 5.0
-    gate_vec = _chi2_table32(dev)[:M_ROWS + 1] * chi2_mult
+    gate_vec = _chi2_table32(dev)[:M + 1] * chi2_mult
     w = torch.full(r.shape, 1.0 / sigma, dtype=torch.float32, device=dev)
     args = (Hx, Hf, r, rowmask, w, cov, gate_vec, 15.0)
     G1, c1, ok1, chi1 = gram_gate(*args)
     G0, c0, ok0, chi0 = gram_gate_plain(*args)
     torch.cuda.synchronize()
+    tag = f"k={k} B={Bn} F={F} M={M} D={D}"
     if not torch.equal(ok0, ok1):
-        raise AssertionError(f"k={k}: ok differs in {int((ok0 != ok1).sum())} features")
+        raise AssertionError(f"{tag}: ok differs in {int((ok0 != ok1).sum())} features")
     n_ok = int(ok1.sum())
     if not 0 < n_ok < ok1.numel():
-        raise AssertionError(f"k={k}: gate accepted {n_ok} of {ok1.numel()}")
+        raise AssertionError(f"{tag}: gate accepted {n_ok} of {ok1.numel()}")
     # bounds of tests/test_msckf_kernel.py: atol 2e-5 max|G|, rtol 2e-4
     for name, a, b in (("G", G1, G0), ("c", c1, c0)):
         sc = float(b.abs().max()) + 1e-9
-        torch.testing.assert_close(a, b, atol=2e-5 * sc, rtol=2e-4, msg=f"k={k} {name}")
+        torch.testing.assert_close(a, b, atol=2e-5 * sc, rtol=2e-4, msg=f"{tag} {name}")
     err = max(float((G1 - G0).abs().max()), float((c1 - c0).abs().max()))
     ms = cuda_ms(lambda: gram_gate(*args))
     plain_ms = cuda_ms(lambda: gram_gate_plain(*args))
-    print(f"kernel k={k} F={F}: ok {n_ok}/{ok1.numel()}, max|dG|={err:.3e} "
-          f"(max|G| {float(G0.abs().max()):.3e}), kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    bms, by = gram_bound(rowmask, ok1, D, k)
+    print(f"gate/Gram {tag}: ok {n_ok}/{ok1.numel()}, max|dG|={err:.3e} "
+          f"(max|G| {float(G0.abs().max()):.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def lk_bound(prev_pyr, next_pyr, uv_prev, levels=3, half=7, iters=6, drift=5, drift_fine=2):
+    """Bound of one LK launch from what its inputs need: the pixels under
+    the union of the patch footprints in every level of both pyramids (the
+    target origins follow the plain version's level loop), read once, the
+    per-feature inputs and outputs, and the FP32 work per feature and level
+    (template taps, gradients, normal matrix, `iters` steps of sampling
+    and the 2x2 solve, the final error)."""
+    import torch
+    import torch.nn.functional as F
+
+    from plviwo_tpu_torch.ops import klt
+
+    Bn, N, _ = uv_prev.shape
+    W = 2 * half + 1
+    covered = 0.0
+
+    def footprint(img, oy, ox, PS):
+        H, Wd = img.shape[-2:]
+        mark = torch.zeros((Bn, H * Wd), device=img.device)
+        mark.scatter_(1, oy * Wd + ox, 1.0)
+        mark = F.pad(mark.view(Bn, 1, H, Wd), (PS - 1, 0, PS - 1, 0))
+        return float(F.max_pool2d(mark, PS, stride=1).sum())
+
+    uv = uv_prev / 2.0 ** (levels - 1)
+    for l in range(levels - 1, -1, -1):
+        D = drift if l == levels - 1 else drift_fine
+        PS = W + 2 * D + 4
+        H, Wd = prev_pyr[l].shape[-2:]
+        up = uv_prev / 2.0**l
+        covered += footprint(prev_pyr[l], klt._origin(up[..., 1], half + D + 2, H - PS),
+                             klt._origin(up[..., 0], half + D + 2, Wd - PS), PS)
+        covered += footprint(next_pyr[l], klt._origin(uv[..., 1], half + D + 1, H - PS),
+                             klt._origin(uv[..., 0], half + D + 1, Wd - PS), PS)
+        uv = klt._lk_level_conv(prev_pyr[l], next_pyr[l], up, uv, half, iters, D)[0]
+        if l > 0:
+            uv = uv * 2.0
+    n_bytes = 4 * covered + Bn * N * (9 + 17)
+    per_level = (W + 2) ** 2 * 9 + W * W * (4 + 6) + iters * (W * W * 14 + 10) + W * W * 11
+    return bound_ms(n_bytes, float(Bn * N * levels * per_level))
+
+
+def phase_lk(dev):
+    """LK kernel vs plain version at the images-in frame's shapes."""
+    import torch
+
+    from plviwo_tpu_torch.examples import lk_pair
+    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3,
+                              width=W_IMG, height=H_IMG))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prev_pyr, next_pyr, uv, valid = lk_pair(sim, B_IMG, N_PTS, 1.0, gen)
+    args = (prev_pyr, next_pyr, uv, valid, 3, 7, 6)
+    uv1, ok1, err1, det1 = lk_kernel.lk_pyramid(*args)
+    uv0, ok0, err0, det0 = klt.pyramidal_lk_conv_full(*args)
+    torch.cuda.synchronize()
+    agree = float((ok1 == ok0).float().mean())
+    both = ok1 & ok0
+    d = torch.linalg.vector_norm(uv1 - uv0, dim=-1)[both]
+    med, mx = float(d.median()), float(d.max())
+    # bounds of tests/test_lk_kernel.py, and >= 99% of the ok flags equal
+    if not (agree >= 0.99 and int(both.sum()) > 0 and med < 1e-3 and mx < 0.05):
+        raise AssertionError(f"LK kernel vs plain: ok agree {agree:.4f}, both {int(both.sum())}, "
+                             f"median |duv| {med:.3e}, max {mx:.3e}")
+    ms = cuda_ms(lambda: lk_kernel.lk_pyramid(*args))
+    plain_ms = cuda_ms(lambda: klt.pyramidal_lk_conv_full(*args), n_iter=5)
+    bms, by = lk_bound(prev_pyr, next_pyr, uv)
+    print(f"LK B={B_IMG} N={N_PTS} {W_IMG}x{H_IMG}: ok kernel {int(ok1.sum())}, plain "
+          f"{int(ok0.sum())}, agree {agree:.5f}; median |duv| {med:.3e} px, max {mx:.3e} px; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def step_args(dev):
     from plviwo_tpu_torch.examples import batch_args, example_inputs_full
 
     args = example_inputs_full(n_clones=N_CLONES, F=F_PTS, O=N_OBS, imu_n=IMU_N,
-                               L=L_LINES, n_wheel=N_WHEEL)
+                               L=L_LINES, n_wheel=N_WHEEL, device=dev)
     return batch_args(args, B, dev)
 
 
@@ -139,7 +258,7 @@ def plain_gate_step(state, per_frame, gravity, sigmas):
         step.gram_gate = gram_gate
 
 
-def phase_main_path(dev):
+def phase_filter_only(dev):
     import torch
 
     from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
@@ -189,9 +308,109 @@ def phase_main_path(dev):
     if not (dp < 1e-5 and dcov < 1e-4 * sc):
         raise AssertionError(f"kernel vs plain step: |dp|={dp:.3e} |dcov|={dcov:.3e} (max|cov| {sc:.3e})")
     fps = B * N_CHAINED / wall
-    print(f"main path: B={B} D={D} counts {counts} (plain path equal), "
+    print(f"filter-only path: B={B} D={D} counts {counts} (plain path equal), "
           f"|dp|={dp:.3e} |dcov|={dcov:.3e} max|cov|={sc:.3e}; first step {first_s:.3f} s; "
           f"{N_CHAINED} chained steps {wall:.4f} s = {fps:.1f} frames/s")
+    return launches, fps
+
+
+def images_in_inputs(dev):
+    """The bench's images-in sequence on the port's simulator: 18 frames of
+    B_IMG sequences (per-sequence pixel noise), IMU and wheel windows."""
+    import torch
+
+    from plviwo_tpu_torch.examples import frame_inputs
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=6.0, n_landmarks=350, n_lines=40, seed=3,
+                              width=W_IMG, height=H_IMG))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return sim, frame_inputs(sim, B_IMG, N_WARM + N_TIMED, gen)
+
+
+def run_images_in(sim, frames, dev):
+    """The 18 frames through `fused_frame` from the ground-truth seed.
+    Returns (final state, per-frame metrics, tracked after the warm-up,
+    frames/s of the timed frames)."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.core import frame
+    from plviwo_tpu_torch.core.layout import StateLayout
+    from plviwo_tpu_torch.core.state import FilterState
+
+    c = sim.cfg
+    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
+    state = FilterState.from_numpy([examples.seed_state(sim, layout, 1.0)] * B_IMG, layout, dev)
+    ts = frame.make_track_state(H_IMG, W_IMG, n_pts=N_PTS, max_obs=MAX_OBS, seed=0,
+                                batch=B_IMG, device=dev)
+    gravity = torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=dev)
+    sigmas = (c.sigma_w, c.sigma_a, c.sigma_wb, c.sigma_ab)
+    wheel_valid = torch.ones(B_IMG, dtype=torch.bool, device=dev)
+    metrics, tracked_warm, t_start = [], None, None
+    for i, f in enumerate(frames):
+        if i == N_WARM:
+            torch.cuda.synchronize()
+            tracked_warm = int(metrics[-1]["tracked"].sum())
+            t_start = time.perf_counter()
+        state, ts, m = frame.fused_frame(
+            state, ts, f["img"], *f["imu"], f["t_new"], *f["wheel"], wheel_valid, gravity,
+            sigmas, 1.5, 8.0, 2.0, (0.05, 0.05, 0.02), model=0, window_size=1.0,
+            cam_dtype=torch.float32, min_track=4, grid_x=GRID[0], grid_y=GRID[1],
+            use_lines=False)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    fps = B_IMG * N_TIMED / (time.perf_counter() - t_start)
+    return state, metrics, tracked_warm, fps
+
+
+def phase_images_in(dev):
+    import torch
+
+    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    sim, frames = images_in_inputs(dev)
+    n = len(frames)
+    lk_kernel.lk_pyramid.launches = 0
+    gram_gate.launches = 0
+    state, metrics, tracked_warm, fps = run_images_in(sim, frames, dev)
+    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                "msckf_gram_gate": gram_gate.launches}
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": n}:
+        raise AssertionError(f"{launches} kernel launches in {n} frames, want one each per frame")
+
+    def totals(ms):
+        timed = ms[N_WARM:]
+        return {"accepted": int(sum(int(m["accepted"].sum()) for m in timed)),
+                "wheel_accepted": int(sum(int(m["wheel_accepted"].sum()) for m in timed)),
+                "tracked_final": int(ms[-1]["tracked"].sum())}
+
+    tot = totals(metrics)
+    if not (tracked_warm > 0 and tot["accepted"] > 0 and tot["wheel_accepted"] > 0):
+        raise AssertionError(f"images-in path: tracked after warm-up {tracked_warm}, {tot}")
+    if not (bool(torch.isfinite(state.p).all()) and bool(torch.isfinite(state.cov).all())):
+        raise AssertionError("images-in path: p or cov is not finite")
+    p_gt = torch.as_tensor(sim.gt_pose(frames[-1]["t"])[1], device=dev)
+    err = torch.linalg.vector_norm(state.p - p_gt, dim=-1)
+    if float(err.max()) >= 0.45:  # the bound of tests/test_fused_frame.py:159
+        raise AssertionError(f"images-in path: final |p - p_gt| up to {float(err.max()):.3f} m")
+
+    # the same frames with the plain LK (the frame module's LK bound to it)
+    lk = lk_kernel.pyramidal_lk
+    lk_kernel.pyramidal_lk = klt.pyramidal_lk_conv
+    try:
+        _, metrics0, _, fps0 = run_images_in(sim, frames, dev)
+    finally:
+        lk_kernel.pyramidal_lk = lk
+    tot0 = totals(metrics0)
+    if (tot0["tracked_final"] != tot["tracked_final"]
+            or abs(tot0["accepted"] - tot["accepted"]) > 0.01 * tot["accepted"]):
+        raise AssertionError(f"images-in path: kernel LK {tot} vs plain LK {tot0}")
+    print(f"images-in path: B={B_IMG} {W_IMG}x{H_IMG} n_pts={N_PTS} D={state.layout.dim}: "
+          f"tracked after warm-up {tracked_warm}, timed {tot} (plain LK {tot0}); final "
+          f"|p - p_gt| max {float(err.max()):.4f} m, mean {float(err.mean()):.4f} m; "
+          f"launches {launches}; {fps:.1f} frames/s (plain LK {fps0:.1f})")
     return launches, fps
 
 
@@ -203,7 +422,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     repo = Path(__file__).resolve().parent
-    if not (repo / "plviwo_tpu_torch" / "csrc" / "msckf_gram_gate.cu").exists():
+    if not (repo / "plviwo_tpu_torch" / "csrc" / "lk_pyramid.cu").exists():
         print(f"chip_smoke: no plviwo_tpu_torch package beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
@@ -214,35 +433,48 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from plviwo_tpu_torch.ops.msckf_kernel import build_library
+    from plviwo_tpu_torch.ops.cuda_lib import build_library
 
     lib, build_s, log = build_library()
     print(f"build: {lib.name} in {build_s:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    D = 162
-    errs, ms, plain_ms = [], 0.0, 0.0
-    for k, F in ((3, F_PTS), (4, L_LINES)):
-        e, t, tp = phase_kernel(k, F, D, dev)
-        errs.append(e)
-        ms += t
-        plain_ms += tp
+    gram_filter = [phase_gram(3, B, F_PTS, M_ROWS, 162, dev),
+                   phase_gram(4, B, L_LINES, M_ROWS, 162, dev)]
+    gram_img = phase_gram(3, B_IMG, N_PTS, 2 * MAX_OBS, 124, dev)
+    lk = phase_lk(dev)
 
-    launches, fps = phase_main_path(dev)
-    print(f"frames/s: {fps:.1f} at B={B} on {card}")
+    filter_launches, filter_fps = phase_filter_only(dev)
+    img_launches, img_fps = phase_images_in(dev)
+    print(f"frames/s: filter-only {filter_fps:.1f} at B={B}, images-in {img_fps:.1f} at "
+          f"B={B_IMG} on {card}")
 
-    print(json.dumps({"kernels": [{
-        "name": "msckf_gram_gate", "route": "cuda",
-        "source": "plviwo_tpu_torch/csrc/msckf_gram_gate.cu",
-        "replaces": "plviwo_tpu/ops/msckf_kernel.py:205",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": plain_ms}]}))
+    # the filter-only shapes: one frame's two calls (k = 3 and k = 4) summed
+    gram_filter_sum = {k: sum(g[k] for g in gram_filter)
+                       for k in ("ms", "plain_ms", "bound_ms")}
+    print(json.dumps({"kernels": [
+        {"name": "msckf_gram_gate", "route": "cuda",
+         "source": "plviwo_tpu_torch/csrc/msckf_gram_gate.cu",
+         "replaces": "plviwo_tpu/ops/msckf_kernel.py:205",
+         "launches": img_launches["msckf_gram_gate"],
+         "max_abs_err": max(g["max_abs_err"] for g in gram_filter + [gram_img]),
+         "ms": gram_img["ms"], "plain_ms": gram_img["plain_ms"],
+         "bound_ms": gram_img["bound_ms"], "bound_by": gram_img["bound_by"],
+         "library_ms": None,
+         "launches_by_path": {"images_in": img_launches["msckf_gram_gate"],
+                              "filter_only": filter_launches},
+         "filter_only_shapes": gram_filter_sum},
+        {"name": "lk_pyramid", "route": "cuda",
+         "source": "plviwo_tpu_torch/csrc/lk_pyramid.cu",
+         "replaces": "plviwo_tpu/ops/lk_kernel.py:141",
+         "launches": img_launches["lk_pyramid"], "max_abs_err": lk["max_abs_err"],
+         "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
+         "bound_by": lk["bound_by"], "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

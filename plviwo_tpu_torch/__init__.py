@@ -9,13 +9,16 @@ Differences by design:
     B replaces the JAX `vmap`), because hand kernels have no vmap rule;
   - state and covariance are torch.float64, the per-feature camera tensors
     float32 (the `cam_dtype=f32` of the JAX bench);
-  - the Pallas MSCKF gate/Gram kernel is a hand-written CUDA kernel
-    (`csrc/msckf_gram_gate.cu`), built with nvcc at first use; CPU tensors
-    take its plain PyTorch version;
+  - the two Pallas kernels are hand-written CUDA kernels for sm_90a: the
+    MSCKF gate/Gram kernel (`csrc/msckf_gram_gate.cu`) and the pyramidal
+    LK kernel (`csrc/lk_pyramid.cu`), built with nvcc at first use
+    (`ops/cuda_lib.py`); CPU tensors take their plain PyTorch versions;
   - no host syncs inside the step: metrics stay tensors.
 
-The package imports torch and never jax.  From the JAX package it imports
-only `plviwo_tpu.core.layout` and `plviwo_tpu.ops.chi2`, both jax-free.
+The package imports torch, numpy and scipy, never jax and nothing of the
+JAX package: it keeps its own copies of the jax-free modules it needs
+(`core/layout.py`, `ops/chi2.py`).  Entry points put their tensors on the
+card unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

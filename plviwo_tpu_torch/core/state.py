@@ -2,8 +2,11 @@
 
 Every field carries a leading sequence axis B: `q` is (B, 4), `cov` is
 (B, D, D), `time` is (B,).  Floating fields are float64, masks bool,
-`slam_id` int32.  The layout (`plviwo_tpu.core.layout.StateLayout`, a plain
-dataclass shared with the JAX package) fixes D and the block offsets.
+`slam_id` int32.  The layout (`core.layout.StateLayout`, the port's copy of
+the JAX package's plain dataclass) fixes D and the block offsets.
+
+Entry points that make tensors (`make_state`, `FilterState.from_numpy`)
+put them on the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -13,9 +16,19 @@ import dataclasses
 import numpy as np
 import torch
 
-from plviwo_tpu.core.layout import StateLayout
+from .layout import StateLayout
 
 F64 = torch.float64
+CUDA = torch.device("cuda")
+
+
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device; raises for a CUDA device where there is
+    no card (callers pass device="cpu" to run on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA card here; pass device='cpu'")
+    return device
 
 # Unbatched rank of each array field, as the JAX FilterState holds it.
 _RANK = {
@@ -79,11 +92,12 @@ class FilterState:
         return self.cov.shape[0]
 
     @classmethod
-    def from_numpy(cls, arrays, layout: StateLayout, device="cpu") -> "FilterState":
+    def from_numpy(cls, arrays, layout: StateLayout, device=CUDA) -> "FilterState":
         """Build a batch-first state from the JAX FilterState's fields.
 
         arrays: one dict {field: numpy array} of an unbatched JAX state
         (gives B = 1), or a list of such dicts (stacked to B = len(list))."""
+        device = checked_device(device)
         if isinstance(arrays, dict):
             arrays = [arrays]
         items = {n: np.stack([np.asarray(a[n]) for a in arrays]) for n in _RANK}
@@ -107,7 +121,7 @@ class FilterState:
 
 
 def make_state(layout: StateLayout, priors: dict | None = None, batch: int = 1,
-               device="cpu") -> FilterState:
+               device=CUDA) -> FilterState:
     """Fresh state with identity orientation and a diagonal prior covariance
     (port of plviwo_tpu.core.state.make_state), repeated over B sequences."""
     C, ncam, ngps, S = layout.n_clones, layout.n_cams, layout.n_gps, layout.max_slam

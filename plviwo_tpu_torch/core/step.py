@@ -22,14 +22,13 @@ import math
 import numpy as np
 import torch
 
-from plviwo_tpu.core.layout import StateLayout
-from plviwo_tpu.ops.chi2 import _TABLE as _CHI2_NP
-
+from ..ops.chi2 import _TABLE as _CHI2_NP
 from ..ops.msckf_kernel import gram_gate
 from ..update import cam_helper
 from ..update import lines as line_up
 from ..update import wheel as wheel_up
 from . import ekf, propagator
+from .layout import StateLayout
 from .state import FilterState, newest_clone_slot
 
 F64 = torch.float64

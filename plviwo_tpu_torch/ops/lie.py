@@ -1,4 +1,4 @@
-"""JPL-quaternion and SO(3) operations (port of plviwo_tpu/ops/lie.py).
+"""JPL-quaternion, SO(3) and SE(3) operations (port of plviwo_tpu/ops/lie.py).
 
 JPL convention: q = [x y z w], scalar last, R(q1 (x) q2) = R(q1) R(q2), and
 `quat_2_rot(q_GtoI) = R_GtoI`.  Every op takes arbitrary leading batch
@@ -158,3 +158,47 @@ def jl_so3(w):
 def jr_so3(w):
     """Right Jacobian of SO(3): Jr(w) = Jl(-w)."""
     return jl_so3(-w)
+
+
+def unskew(m):
+    """Inverse of skew: (...,3,3) -> (...,3)."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
+def jl_so3_inv(w):
+    """Inverse left Jacobian of SO(3)."""
+    th2, th = _theta2_safe(w)
+    sk = skew(w)
+    half = th / 2.0
+    cot = half / torch.tan(half)
+    small = th2 < _cancel_cut(w.dtype)
+    b = torch.where(small, 1.0 / 12.0 + th2 / 720.0 + th2 * th2 / 30240.0,
+                    (1.0 - cot) / (th * th))
+    return _eye3(w) - 0.5 * sk + b[..., None, None] * (sk @ sk)
+
+
+def _se3(R, p):
+    """(...,3,3), (...,3) -> (...,4,4) homogeneous transform."""
+    top = torch.cat([R, p[..., :, None]], dim=-1)
+    bot = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
+    bot[..., 0, 3] = 1.0
+    return torch.cat([top, bot], dim=-2)
+
+
+def exp_se3(xi):
+    """se(3) exp: xi = [omega, rho] (...,6) -> (...,4,4)."""
+    w, rho = xi[..., :3], xi[..., 3:]
+    return _se3(exp_so3(w), (jl_so3(w) @ rho[..., :, None])[..., 0])
+
+
+def log_se3(T):
+    """SE(3) log: (...,4,4) -> (...,6) [omega, rho]."""
+    w = log_so3(T[..., :3, :3])
+    rho = (jl_so3_inv(w) @ T[..., :3, 3:4])[..., 0]
+    return torch.cat([w, rho], dim=-1)
+
+
+def inv_se3(T):
+    """SE(3) inverse (...,4,4)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return _se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])

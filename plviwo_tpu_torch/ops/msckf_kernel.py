@@ -8,30 +8,17 @@ into the Gram system (G = sum Hv^T Hv, c = sum Hv^T rv).
 
 `gram_gate` takes batch-first tensors.  On CUDA tensors it launches the
 hand-written kernel `csrc/msckf_gram_gate.cu` (built with nvcc for sm_90a
-at first use, into `build/` at the repository root) or raises; on CPU
-tensors it runs `gram_gate_plain`.  There is no fallback between the two.
+at first use by `ops/cuda_lib.py`) or raises; on CPU tensors it runs
+`gram_gate_plain`.  There is no fallback between the two.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-
 import torch
 
-F32 = torch.float32
+from . import cuda_lib
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "msckf_gram_gate.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plviwo_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+F32 = torch.float32
 
 
 def gram_gate_plain(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap):
@@ -78,67 +65,6 @@ def gram_gate_plain(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap):
     return G, c, ok, chi2
 
 
-def build_library() -> tuple[Path, float, str]:
-    """Compile the kernel's shared library with nvcc if it is not built yet.
-
-    Returns (path, build seconds — 0.0 when it was already built, the
-    compiler's output with the `-Xptxas -v` register/shared-memory report).
-    The file name carries a hash of the source, so an edited source builds
-    anew."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmsckf_gram_gate_{tag}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, 0.0, log.read_text() if log.exists() else ""
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"nvcc not found (looked on PATH and at {nvcc})")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    output = proc.stdout + proc.stderr
-    log.write_text(output)
-    os.replace(tmp, lib)
-    return lib, seconds, output
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.msckf_gram_gate.argtypes = [vp] * 7 + [ctypes.c_float] + [ci] * 5 + [vp] * 6
-    lib.msckf_gram_gate.restype = ci
-    lib.msckf_gram_gate_smem_bytes.argtypes = [ci, ci, ci]
-    lib.msckf_gram_gate_smem_bytes.restype = ctypes.c_size_t
-    lib.msckf_gram_gate_error_string.argtypes = [ci]
-    lib.msckf_gram_gate_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
 def gram_gate(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap: float):
     """Gated Gram system of a batch of per-feature MSCKF systems.
 
@@ -164,16 +90,16 @@ def gram_gate(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap: float):
     if not (1 <= k < M) or B < 1 or F < 1:
         raise ValueError(f"gram_gate: bad sizes B={B} F={F} M={M} k={k}")
     dev = Hx.device
-    _check("Hx", Hx, F32, (B, F, M, D), dev)
-    _check("Hf", Hf, F32, (B, F, M, k), dev)
-    _check("r", r, F32, (B, F, M), dev)
-    _check("rowmask", rowmask, torch.bool, (B, F, M), dev)
-    _check("w", w, F32, (B, F, M), dev)
-    _check("cov", cov, F32, (B, D, D), dev)
-    _check("gate_vec", gate_vec, F32, (M + 1,), dev)
-    lib = _library()
+    cuda_lib.check("Hx", Hx, F32, (B, F, M, D), dev)
+    cuda_lib.check("Hf", Hf, F32, (B, F, M, k), dev)
+    cuda_lib.check("r", r, F32, (B, F, M), dev)
+    cuda_lib.check("rowmask", rowmask, torch.bool, (B, F, M), dev)
+    cuda_lib.check("w", w, F32, (B, F, M), dev)
+    cuda_lib.check("cov", cov, F32, (B, D, D), dev)
+    cuda_lib.check("gate_vec", gate_vec, F32, (M + 1,), dev)
+    lib = cuda_lib.library()
     smem = lib.msckf_gram_gate_smem_bytes(M, D, k)
-    if smem > _SMEM_LIMIT:
+    if smem > cuda_lib.SMEM_LIMIT:
         raise ValueError(f"gram_gate: M={M}, D={D} need {smem} B of shared memory")
 
     P = torch.empty((B, F, M - k, D + 1), dtype=F32, device=dev)
@@ -182,7 +108,7 @@ def gram_gate(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap: float):
     G = torch.empty((B, D, D), dtype=F32, device=dev)
     c = torch.empty((B, D), dtype=F32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = cuda_lib.current_stream(dev)
         err = lib.msckf_gram_gate(
             Hx.data_ptr(), Hf.data_ptr(), r.data_ptr(), rowmask.data_ptr(),
             w.data_ptr(), cov.data_ptr(), gate_vec.data_ptr(), float(resid_cap),

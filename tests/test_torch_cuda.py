@@ -8,17 +8,20 @@ the repository root on a machine with a card:
 
 (`--noconftest`: tests/conftest.py configures JAX.)
 
-Tolerances: `ok` equal; G and c within atol 2e-5 max|G|, rtol 2e-4 (the
-bounds of tests/test_msckf_kernel.py); the fused step within max|dp| < 1e-5
-and max|dcov| < 1e-4 max|cov|.
+Tolerances: gate/Gram `ok` equal, G and c within atol 2e-5 max|G|, rtol
+2e-4 (the bounds of tests/test_msckf_kernel.py); the fused step within
+max|dp| < 1e-5 and max|dcov| < 1e-4 max|cov|; the LK kernel `ok` equal on
+>= 99% of the features and, where both accept, median |duv| < 1e-3 px and
+max < 0.05 px (the bounds of tests/test_lk_kernel.py: the kernel's samples
+equal the plain version's, its block sums take another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from plviwo_tpu.ops.chi2 import _TABLE as _CHI2_NP
 from plviwo_tpu_torch.examples import SIGMA_LINE, WHEEL_NOISE, batch_args, example_inputs_full
+from plviwo_tpu_torch.ops.chi2 import _TABLE as _CHI2_NP
 from plviwo_tpu_torch.ops.msckf_kernel import gram_gate, gram_gate_plain
 
 F32 = np.float32
@@ -56,7 +59,8 @@ def _gate_vec(M, chi2_mult, dev):
     (3, 4, 40, 40, 162), (4, 4, 16, 40, 162),  # the filter bench's M and D
     # the CPU tests' shapes: fewer rows than one pass-1 row chunk, and D + 1
     # not a multiple of the pass-2 tile
-    (3, 1, 8, 12, 40), (4, 1, 8, 12, 40)])
+    (3, 1, 8, 12, 40), (4, 1, 8, 12, 40),
+    (3, 64, 128, 16, 124)])  # the images-in frame: 128 slots x 8 obs, D = 124
 def test_kernel_matches_plain(cuda_device, k, B, F, M, D):
     Hx, Hf, r, rowmask, cov = _systems(np.random.default_rng(30 + k + M), B, F, M, D, k,
                                        cuda_device)
@@ -96,8 +100,8 @@ def test_step_kernel_path_matches_plain_path(cuda_device, monkeypatch):
     matches the same step with the plain gate."""
     from plviwo_tpu_torch.core import step
 
-    b = batch_args(example_inputs_full(n_clones=8, F=6, O=5, imu_n=8, L=3, n_wheel=8),
-                   3, cuda_device)
+    b = batch_args(example_inputs_full(n_clones=8, F=6, O=5, imu_n=8, L=3, n_wheel=8,
+                                       device=cuda_device), 3, cuda_device)
 
     def run():
         return step.fused_step_full(*b, SIGMA_LINE, WHEEL_NOISE, cam_dtype=torch.float32)
@@ -110,5 +114,111 @@ def test_step_kernel_path_matches_plain_path(cuda_device, monkeypatch):
     s0, m0 = run()
     for k in COUNTS:
         assert torch.equal(m1[k], m0[k]) and int(m1[k].sum()) > 0
+    assert float((s1.p - s0.p).abs().max()) < 1e-5
+    assert float((s1.cov - s0.cov).abs().max()) < 1e-4 * float(s0.cov.abs().max())
+
+
+def _lk_inputs(B, n_pts, dev, seed=0):
+    from plviwo_tpu_torch.examples import lk_pair
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return lk_pair(sim, B, n_pts, 1.0, gen)
+
+
+def _assert_lk_close(out, ref):
+    (uv1, ok1, err1, det1), (uv0, ok0, err0, det0) = out, ref
+    assert float((ok1 == ok0).float().mean()) >= 0.99
+    both = ok1 & ok0
+    # the per-sequence noise makes the sky's flat 0.5 a texture of noise
+    # after equalization: corners there fail, as in the bench
+    assert int(both.sum()) >= 0.1 * ok0.numel()
+    d = torch.linalg.vector_norm(uv1 - uv0, dim=-1)[both]
+    assert float(d.median()) < 1e-3 and float(d.max()) < 0.05, (float(d.median()), float(d.max()))
+    torch.testing.assert_close(det1, det0, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(err1[both], err0[both], rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n_pts", [(2, 48), (64, 128)])  # small; the main path's
+def test_lk_kernel_matches_plain(cuda_device, B, n_pts):
+    from plviwo_tpu_torch.ops import klt, lk_kernel
+
+    prev_pyr, next_pyr, uv, valid = _lk_inputs(B, n_pts, cuda_device)
+    before = lk_kernel.lk_pyramid.launches
+    out = lk_kernel.lk_pyramid(prev_pyr, next_pyr, uv, valid, 3, 7, 6)
+    ref = klt.pyramidal_lk_conv_full(prev_pyr, next_pyr, uv, valid, 3, 7, 6)
+    torch.cuda.synchronize()
+    assert lk_kernel.lk_pyramid.launches == before + 1
+    _assert_lk_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_lk_kernel_rejects_what_it_does_not_take(cuda_device):
+    from plviwo_tpu_torch.ops import lk_kernel
+
+    prev_pyr, next_pyr, uv, valid = _lk_inputs(1, 8, cuda_device)
+    with pytest.raises(ValueError):
+        lk_kernel.pyramidal_lk(prev_pyr, next_pyr, uv.double(), valid, 3)
+    with pytest.raises(ValueError):
+        lk_kernel.pyramidal_lk(prev_pyr, next_pyr, uv, valid.cpu(), 3)
+    with pytest.raises(ValueError):
+        lk_kernel.pyramidal_lk(tuple(p[..., ::2] for p in prev_pyr), next_pyr, uv, valid, 3)
+    with pytest.raises(ValueError):  # a 29-px patch does not fit a 15-px level
+        lk_kernel.pyramidal_lk(tuple(p[:, :15, :15].contiguous() for p in prev_pyr),
+                               tuple(p[:, :15, :15].contiguous() for p in next_pyr), uv, valid, 3)
+
+
+@pytest.mark.cuda
+def test_frame_kernel_path_matches_plain_path(cuda_device, monkeypatch):
+    """Three images-in frames at B = 2: the kernel path launches each kernel
+    once per frame and matches the path with both plain versions."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.core import frame, step
+    from plviwo_tpu_torch.core.layout import StateLayout
+    from plviwo_tpu_torch.core.state import FilterState
+    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3))
+    layout = StateLayout(n_clones=6, n_cams=1, use_wheel=True)
+    imu = sim.imu_stream()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    frames, t_prev = [], 1.0
+    for i in range(3):
+        t = 1.0 + 0.1 * (i + 1)
+        win = (examples.imu_window(*imu, t_prev, t) + (np.array([t]),)
+               + examples.wheel_window(sim, t_prev, t))
+        frames.append((examples.noisy_batch(sim.render_frame(t), 2, gen),)
+                      + tuple(torch.as_tensor(np.stack([a, a]), device=cuda_device) for a in win))
+        t_prev = t
+    gravity = torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=cuda_device)
+
+    def run():
+        st = FilterState.from_numpy([examples.seed_state(sim, layout, 1.0)] * 2, layout,
+                                    cuda_device)
+        ts = frame.make_track_state(480, 640, n_pts=32, max_obs=3, batch=2, device=cuda_device)
+        out = []
+        for img, it, iw, ia, tn, wt, w1, w2 in frames:
+            st, ts, m = frame.fused_frame(
+                st, ts, img, it, iw, ia, tn[:, 0], wt, w1, w2,
+                torch.ones(2, dtype=torch.bool, device=cuda_device), gravity,
+                (1.7e-4, 2.0e-3, 1.9e-5, 3.0e-3), 1.5, 8.0, 2.0, (0.05, 0.05, 0.02),
+                use_lines=False)
+            out.append(m)
+        return st, out
+
+    before = (lk_kernel.lk_pyramid.launches, gram_gate.launches)
+    s1, m1 = run()
+    torch.cuda.synchronize()
+    assert (lk_kernel.lk_pyramid.launches, gram_gate.launches) == (before[0] + 3, before[1] + 3)
+    monkeypatch.setattr(frame.lk_kernel, "pyramidal_lk", klt.pyramidal_lk_conv)
+    monkeypatch.setattr(step, "gram_gate", gram_gate_plain)
+    s0, m0 = run()
+    for a, b in zip(m1, m0):
+        for k in ("tracked", "harvested", "accepted", "wheel_accepted"):
+            assert torch.equal(a[k], b[k]), k
+    assert int(sum(m["tracked"].sum() for m in m1)) > 0
     assert float((s1.p - s0.p).abs().max()) < 1e-5
     assert float((s1.cov - s0.cov).abs().max()) < 1e-4 * float(s0.cov.abs().max())

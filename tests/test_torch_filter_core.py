@@ -180,7 +180,7 @@ def _warm_state(rng, layout=LAYOUT, n_valid=4):
 def _to_torch(st: JState) -> TState:
     return TState.from_numpy({f.name: np.asarray(getattr(st, f.name))
                               for f in dataclasses.fields(st) if f.name != "layout"},
-                             st.layout)
+                             st.layout, device="cpu")
 
 
 def _close_state(ts: TState, js: JState, tol=F64_TOL, cov_tol=None):
@@ -192,7 +192,7 @@ def _close_state(ts: TState, js: JState, tol=F64_TOL, cov_tol=None):
 
 def _case_state(rng):
     js = jmake_state(LAYOUT, priors=PRIORS)
-    ts = tmake_state(LAYOUT, priors=PRIORS)
+    ts = tmake_state(LAYOUT, priors=PRIORS, device="cpu")
     _close_state(ts, js)
     ws = _warm_state(rng)
     _close(tstep.newest_clone_slot(_to_torch(ws)), np.asarray(jstep.newest_clone_slot(ws))[None])

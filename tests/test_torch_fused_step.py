@@ -64,7 +64,7 @@ def _assert_step_close(ts, tm, js, jm, b=0, counts=COUNTS):
 
 @pytest.fixture(scope="module")
 def full_inputs():
-    return _example_inputs_full(**SMALL), example_inputs_full(**SMALL)
+    return _example_inputs_full(**SMALL), example_inputs_full(**SMALL, device="cpu")
 
 
 def test_examples_match_jax_builders(full_inputs):
@@ -80,7 +80,7 @@ def test_examples_match_jax_builders(full_inputs):
             assert a == b
         else:
             np.testing.assert_array_equal(np.asarray(b), np.asarray(a), err_msg=str(i))
-    pa, pb = _example_inputs(), example_inputs()
+    pa, pb = _example_inputs(), example_inputs(device="cpu")
     for k, v in _jax_state_arrays(pa[0]).items():
         np.testing.assert_array_equal(pb[0].to_numpy()[k], v, err_msg=k)
     for a, b in zip(pa[1:9], pb[1:9]):
@@ -90,7 +90,7 @@ def test_examples_match_jax_builders(full_inputs):
 def test_state_numpy_round_trip(full_inputs):
     ja, _ = full_inputs
     arrays = _jax_state_arrays(ja[0])
-    st = FilterState.from_numpy(arrays, ja[0].layout)
+    st = FilterState.from_numpy(arrays, ja[0].layout, device="cpu")
     assert st.batch == 1 and st.cov.dtype == torch.float64
     assert st.clone_valid.dtype == torch.bool and st.slam_id.dtype == torch.int32
     back = st.to_numpy()
@@ -98,20 +98,21 @@ def test_state_numpy_round_trip(full_inputs):
         assert back[k].dtype == v.dtype, k
         np.testing.assert_array_equal(back[k], v, err_msg=k)
     # a list of states stacks to B
-    two = FilterState.from_numpy([arrays, arrays], ja[0].layout)
+    two = FilterState.from_numpy([arrays, arrays], ja[0].layout, device="cpu")
     assert two.batch == 2
     np.testing.assert_array_equal(two.to_numpy(1)["cov"], arrays["cov"])
     with pytest.raises(ValueError):
-        FilterState.from_numpy({**arrays, "q": arrays["q"][None, None]}, ja[0].layout)
+        FilterState.from_numpy({**arrays, "q": arrays["q"][None, None]}, ja[0].layout,
+                               device="cpu")
 
 
 def test_fused_step_matches_jax():
     """Points only: the port's kernel-path gate against the JAX XLA path
     (whose "rows" counts projected rows, the kernel path's raw rows)."""
     ja, ta = _example_inputs(n_clones=8, F=6, O=5, imu_n=8), example_inputs(
-        n_clones=8, F=6, O=5, imu_n=8)
+        n_clones=8, F=6, O=5, imu_n=8, device="cpu")
     js, jm = j_fused_step(*ja, model=0, window_size=1.0, cam_dtype=jnp.float32)
-    ts, tm = fused_step(*batch_args(ta, 1, n_batched=8), model=0, window_size=1.0,
+    ts, tm = fused_step(*batch_args(ta, 1, "cpu", n_batched=8), model=0, window_size=1.0,
                         cam_dtype=torch.float32)
     assert int(jm["accepted"]) > 0
     _assert_step_close(ts, tm, js, jm, counts=("accepted",))
@@ -121,7 +122,7 @@ def test_fused_step_full_matches_jax(full_inputs):
     ja, ta = full_inputs
     js, jm = _jax_full(ja)
     before = gram_gate.launches
-    ts, tm = _torch_full(batch_args(ta, 1))
+    ts, tm = _torch_full(batch_args(ta, 1, "cpu"))
     assert gram_gate.launches == before  # CPU tensors: plain version, no launch
     assert min(int(jm[k]) for k in COUNTS) > 0
     _assert_step_close(ts, tm, js, jm)
@@ -131,8 +132,8 @@ def test_fused_step_full_matches_jax(full_inputs):
 def test_chained_frames_match_jax(full_inputs):
     """Three chained frames, each fed the previous frame's state."""
     ja, ta = full_inputs
-    js, ts = ja[0], batch_args(ta, 1)[0]
-    per_j, per_t = ja[1:], batch_args(ta, 1)[1:]
+    js, ts = ja[0], batch_args(ta, 1, "cpu")[0]
+    per_j, per_t = ja[1:], batch_args(ta, 1, "cpu")[1:]
     for _ in range(3):
         js, jm = _jax_full((js,) + per_j)
         ts, tm = _torch_full((ts,) + per_t)
@@ -152,7 +153,8 @@ def test_batch_of_different_sequences(full_inputs):
         imu_w = np.asarray(ja[2]) + 1e-3 * b * rng.normal(size=np.shape(ja[2]))
         obs_uv = np.asarray(ja[5]) + 0.3 * b * rng.normal(size=np.shape(ja[5]))
         seqs.append((st, ja[1], jnp.asarray(imu_w), ja[3], ja[4], jnp.asarray(obs_uv)) + ja[6:])
-    stacked = [FilterState.from_numpy([_jax_state_arrays(s[0]) for s in seqs], ja[0].layout)]
+    stacked = [FilterState.from_numpy([_jax_state_arrays(s[0]) for s in seqs], ja[0].layout,
+                                      device="cpu")]
     for i in range(1, 17):
         a = np.stack([np.asarray(s[i]) for s in seqs])
         t = torch.as_tensor(a)
@@ -166,7 +168,8 @@ def test_batch_of_different_sequences(full_inputs):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+    """Importing every module of the port leaves jax and the JAX package
+    (`plviwo_tpu`, `plviwo_tpu.*`) out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import plviwo_tpu_torch as p\n"
@@ -175,6 +178,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax')))\n"
         "assert not bad, bad\n"
+        "ref = sorted(m for m in sys.modules if m == 'plviwo_tpu' or m.startswith('plviwo_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
