@@ -24,7 +24,10 @@ Phases (any failure raises, so the exit code is non-zero):
      port's simulator: 6 warm-up and 12 timed frames with one LK and one
      gate/Gram launch each, accepted point and wheel rows, every sequence
      within 0.45 m of ground truth; the same 18 frames through the plain
-     LK give the same tracked count and accepted total within 1%.
+     LK give the same tracked count and accepted total within 1%;
+  7. gate/Gram kernel vs its plain version on the arguments the images-in
+     path gave it in its last frame (most features have too few rows and
+     exit early), with times and bound.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
 JAX.
@@ -115,12 +118,11 @@ def gram_bound(rowmask, ok, D, k):
     return bound_ms(n_bytes, ops)
 
 
-def phase_gram(k, Bn, F, M, D, dev):
-    """gate/Gram kernel vs plain version at one of the main paths' shapes."""
+def gram_args(k, Bn, F, M, D, dev):
+    """The gate/Gram kernel's arguments on random systems at one shape."""
     import torch
 
     from plviwo_tpu_torch.core.step import _chi2_table32
-    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate, gram_gate_plain
 
     rng = np.random.default_rng(10 + k + M)
     Hx, Hf, r, rowmask, cov = (torch.as_tensor(a, device=dev)
@@ -128,26 +130,45 @@ def phase_gram(k, Bn, F, M, D, dev):
     sigma, chi2_mult = 1.3, 5.0
     gate_vec = _chi2_table32(dev)[:M + 1] * chi2_mult
     w = torch.full(r.shape, 1.0 / sigma, dtype=torch.float32, device=dev)
-    args = (Hx, Hf, r, rowmask, w, cov, gate_vec, 15.0)
-    G1, c1, ok1, chi1 = gram_gate(*args)
-    G0, c0, ok0, chi0 = gram_gate_plain(*args)
-    torch.cuda.synchronize()
-    tag = f"k={k} B={Bn} F={F} M={M} D={D}"
+    return (Hx, Hf, r, rowmask, w, cov, gate_vec, 15.0)
+
+
+def check_gram(out, ref, tag):
+    """Hold a gate/Gram result to the plain version's: `ok` equal, G and c
+    within the bounds of tests/test_msckf_kernel.py (atol 2e-5 max|G|, rtol
+    2e-4).  Returns max |dG|, |dc|."""
+    import torch
+
+    (G1, c1, ok1, _), (G0, c0, ok0, _) = out, ref
     if not torch.equal(ok0, ok1):
         raise AssertionError(f"{tag}: ok differs in {int((ok0 != ok1).sum())} features")
-    n_ok = int(ok1.sum())
-    if not 0 < n_ok < ok1.numel():
-        raise AssertionError(f"{tag}: gate accepted {n_ok} of {ok1.numel()}")
-    # bounds of tests/test_msckf_kernel.py: atol 2e-5 max|G|, rtol 2e-4
     for name, a, b in (("G", G1, G0), ("c", c1, c0)):
         sc = float(b.abs().max()) + 1e-9
         torch.testing.assert_close(a, b, atol=2e-5 * sc, rtol=2e-4, msg=f"{tag} {name}")
-    err = max(float((G1 - G0).abs().max()), float((c1 - c0).abs().max()))
+    return max(float((G1 - G0).abs().max()), float((c1 - c0).abs().max()))
+
+
+def phase_gram(tag, args):
+    """gate/Gram kernel vs plain version on one call's arguments."""
+    import torch
+
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate, gram_gate_plain
+
+    out = gram_gate(*args)
+    ref = gram_gate_plain(*args)
+    torch.cuda.synchronize()
+    err = check_gram(out, ref, tag)
+    ok1 = out[2]
+    n_ok = int(ok1.sum())
+    if not 0 < n_ok < ok1.numel():
+        raise AssertionError(f"{tag}: gate accepted {n_ok} of {ok1.numel()}")
     ms = cuda_ms(lambda: gram_gate(*args))
     plain_ms = cuda_ms(lambda: gram_gate_plain(*args))
+    rowmask, D, k = args[3], args[0].shape[-1], args[1].shape[-1]
     bms, by = gram_bound(rowmask, ok1, D, k)
-    print(f"gate/Gram {tag}: ok {n_ok}/{ok1.numel()}, max|dG|={err:.3e} "
-          f"(max|G| {float(G0.abs().max()):.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    live = int((rowmask.sum(-1) > k).sum())
+    print(f"gate/Gram {tag}: ok {n_ok}/{ok1.numel()} ({live} with > k rows), max|dG|={err:.3e} "
+          f"(max|G| {float(ref[0].abs().max()):.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bms:.4f} ms ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
@@ -328,14 +349,28 @@ def images_in_inputs(dev):
     return sim, frame_inputs(sim, B_IMG, N_WARM + N_TIMED, gen)
 
 
-def run_images_in(sim, frames, dev):
+def run_images_in(sim, frames, dev, capture=None):
     """The 18 frames through `fused_frame` from the ground-truth seed.
     Returns (final state, per-frame metrics, tracked after the warm-up,
-    frames/s of the timed frames)."""
+    frames/s of the timed frames).  A list `capture` receives the arguments
+    of the last frame's gate/Gram call."""
     import torch
 
     from plviwo_tpu_torch import examples
-    from plviwo_tpu_torch.core import frame
+    from plviwo_tpu_torch.core import frame, step
+
+    if capture is not None:
+        real = step.gram_gate
+
+        def recording(*args):
+            capture[:] = args
+            return real(*args)
+
+        step.gram_gate = recording
+        try:
+            return run_images_in(sim, frames, dev)
+        finally:
+            step.gram_gate = real
     from plviwo_tpu_torch.core.layout import StateLayout
     from plviwo_tpu_torch.core.state import FilterState
 
@@ -372,9 +407,10 @@ def phase_images_in(dev):
 
     sim, frames = images_in_inputs(dev)
     n = len(frames)
+    captured = []
     lk_kernel.lk_pyramid.launches = 0
     gram_gate.launches = 0
-    state, metrics, tracked_warm, fps = run_images_in(sim, frames, dev)
+    state, metrics, tracked_warm, fps = run_images_in(sim, frames, dev, captured)
     launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
                 "msckf_gram_gate": gram_gate.launches}
     if launches != {"lk_pyramid": n, "msckf_gram_gate": n}:
@@ -411,7 +447,7 @@ def phase_images_in(dev):
           f"tracked after warm-up {tracked_warm}, timed {tot} (plain LK {tot0}); final "
           f"|p - p_gt| max {float(err.max()):.4f} m, mean {float(err.mean()):.4f} m; "
           f"launches {launches}; {fps:.1f} frames/s (plain LK {fps0:.1f})")
-    return launches, fps
+    return launches, fps, tuple(captured)
 
 
 def main() -> int:
@@ -441,13 +477,18 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    gram_filter = [phase_gram(3, B, F_PTS, M_ROWS, 162, dev),
-                   phase_gram(4, B, L_LINES, M_ROWS, 162, dev)]
-    gram_img = phase_gram(3, B_IMG, N_PTS, 2 * MAX_OBS, 124, dev)
+    gram_filter = [phase_gram(f"k={k} B={B} F={F} M={M_ROWS} D=162",
+                              gram_args(k, B, F, M_ROWS, 162, dev))
+                   for k, F in ((3, F_PTS), (4, L_LINES))]
+    gram_img = phase_gram(f"k=3 B={B_IMG} F={N_PTS} M={2 * MAX_OBS} D=124",
+                          gram_args(3, B_IMG, N_PTS, 2 * MAX_OBS, 124, dev))
     lk = phase_lk(dev)
 
     filter_launches, filter_fps = phase_filter_only(dev)
-    img_launches, img_fps = phase_images_in(dev)
+    img_launches, img_fps, frame_args = phase_images_in(dev)
+    # the kernel on the inputs the images-in path gave it in its last frame
+    gram_frame = phase_gram("captured images-in frame " + "x".join(
+        str(n) for n in frame_args[0].shape), frame_args)
     print(f"frames/s: filter-only {filter_fps:.1f} at B={B}, images-in {img_fps:.1f} at "
           f"B={B_IMG} on {card}")
 
@@ -459,13 +500,14 @@ def main() -> int:
          "source": "plviwo_tpu_torch/csrc/msckf_gram_gate.cu",
          "replaces": "plviwo_tpu/ops/msckf_kernel.py:205",
          "launches": img_launches["msckf_gram_gate"],
-         "max_abs_err": max(g["max_abs_err"] for g in gram_filter + [gram_img]),
+         "max_abs_err": max(g["max_abs_err"] for g in gram_filter + [gram_img, gram_frame]),
          "ms": gram_img["ms"], "plain_ms": gram_img["plain_ms"],
          "bound_ms": gram_img["bound_ms"], "bound_by": gram_img["bound_by"],
          "library_ms": None,
          "launches_by_path": {"images_in": img_launches["msckf_gram_gate"],
                               "filter_only": filter_launches},
-         "filter_only_shapes": gram_filter_sum},
+         "filter_only_shapes": gram_filter_sum,
+         "captured_frame": {k: gram_frame[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "lk_pyramid", "route": "cuda",
          "source": "plviwo_tpu_torch/csrc/lk_pyramid.cu",
          "replaces": "plviwo_tpu/ops/lk_kernel.py:141",

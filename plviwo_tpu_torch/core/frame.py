@@ -54,20 +54,23 @@ class TrackState:
     hist_t: torch.Tensor    # (B,N,O) f64 observation times
     hist_slot: torch.Tensor  # (B,N,O) int64 clone ring slot per observation
     n_obs: torch.Tensor     # (B,N) int64
-    gen: torch.Generator    # RANSAC hypotheses (the JAX package's `key`)
+    key: torch.Tensor       # (B,) int64 RANSAC key per sequence (the JAX package's `key`)
+    counter: torch.Tensor   # (B,) int64 frames tracked: with `key`, what RANSAC draws from
 
     def replace(self, **kw) -> "TrackState":
         return dataclasses.replace(self, **kw)
 
 
-def make_track_state(height: int, width: int, n_pts: int = 128, max_obs: int = 10,
-                     seed: int = 0, batch: int = 1, device=CUDA) -> TrackState:
-    """Empty front-end state of `batch` sequences on `device`; `seed` seeds
-    the RANSAC generator."""
+def make_track_state(height: int, width: int, n_pts: int = 128, max_lines: int = 24,
+                     max_obs: int = 10, seed: int = 0, *, batch: int = 1,
+                     device=CUDA) -> TrackState:
+    """Empty front-end state of `batch` sequences on `device`, with the JAX
+    package's positional signature.  Sequence b's RANSAC key is seed + b
+    (JAX's bench gives sequence b `PRNGKey(b)`), its frame counter 0.
+    `max_lines` is accepted as in JAX; no line fields are allocated until
+    the line front-end is ported (ROADMAP A6b)."""
     dev = checked_device(device)
     B, N, O = batch, n_pts, max_obs
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
 
     def z(*shape, dtype=F32):
         return torch.zeros((B,) + shape, dtype=dtype, device=dev)
@@ -78,7 +81,8 @@ def make_track_state(height: int, width: int, n_pts: int = 128, max_obs: int = 1
         uv=z(N, 2), valid=z(N, dtype=torch.bool),
         hist_uv=z(N, O, 2), hist_uvn=z(N, O, 2),
         hist_t=torch.full((B, N, O), -torch.inf, dtype=F64, device=dev),
-        hist_slot=z(N, O, dtype=torch.int64), n_obs=z(N, dtype=torch.int64), gen=gen)
+        hist_slot=z(N, O, dtype=torch.int64), n_obs=z(N, dtype=torch.int64),
+        key=seed + torch.arange(B, dtype=torch.int64, device=dev), counter=z(dtype=torch.int64))
 
 
 def _fill_free_slots(free, cand_ok):
@@ -145,7 +149,7 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
     zn = cam_ops.undistort(torch.cat([ts.uv, uv_next], dim=1).to(F64), kb, cam_model)
     zn_prev, zn_next = zn[:, :N], zn[:, N:]
     enough = torch.sum(ok, dim=-1, keepdim=True) >= 12
-    inl = klt_ops.ransac_fundamental(zn_prev, zn_next, ok, ts.gen)
+    inl = klt_ops.ransac_fundamental(zn_prev, zn_next, ok, ts.key, ts.counter)
     ok = ok & torch.where(enough, inl, ok)
 
     alive = ts.valid & ok & has_prev
@@ -178,7 +182,7 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
     ts2 = ts.replace(
         pyr0=pyr[0], pyr1=pyr[1], pyr2=pyr[2], has_prev=torch.ones_like(ts.has_prev),
         uv=uv_all.to(F32), valid=alive | filled, hist_uv=hist[0], hist_uvn=hist[1],
-        hist_t=hist[2], hist_slot=hist[3], n_obs=hist[4])
+        hist_t=hist[2], hist_slot=hist[3], n_obs=hist[4], counter=ts.counter + 1)
     return ts2, point_harvest
 
 

@@ -254,28 +254,60 @@ def _epi_dist(F, x1, x2):
     return torch.maximum(d1, d2)
 
 
-def draw_hypotheses(gen: torch.Generator, batch: int, n_hyp: int, n: int):
-    """The RANSAC draws: (r0, s) (batch, n_hyp) int64 in [0, n), from `gen`
-    on its device.  JAX draws them from its threefry PRNG, which no torch
-    generator reproduces; the parity tests replace this function with one
-    that replays JAX's draws."""
-    r = torch.randint(0, n, (2, batch, n_hyp), generator=gen, device=gen.device)
-    return r[0], r[1]
+def _i64(c: int) -> int:
+    """A 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
 
 
-def ransac_fundamental(x1, x2, valid, gen: torch.Generator, n_hyp: int = 64,
+_GOLDEN, _MIX1, _MIX2 = (_i64(0x9E3779B97F4A7C15), _i64(0xBF58476D1CE4E5B9),
+                         _i64(0x94D049BB133111EB))
+
+
+def _srl(x, s: int):
+    """Logical right shift of int64 x by s bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64(x):
+    """splitmix64's output function on int64 tensors (arithmetic wraps mod
+    2^64): a bijection of the 64-bit words that mixes every input bit."""
+    x = x + _GOLDEN
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def draw_hypotheses(key, counter, n_hyp: int, n: int):
+    """The RANSAC draws: (r0, s) (B, n_hyp) int64 in [0, n).
+
+    key, counter: (B,) int64, each sequence's key and frame counter.  A
+    stateless counter hash: draw i of stream z (0: r0, 1: s) of sequence b
+    is the top 63 bits of splitmix64(splitmix64(splitmix64(key[b]) ^
+    counter[b]) ^ (z n_hyp + i)) mod n, so it depends on that sequence's key
+    and counter only, never on the batch, and the same inputs give the same
+    draws.  JAX draws them from its threefry PRNG, which this does not
+    reproduce; the parity tests replace this function with one that replays
+    JAX's draws."""
+    base = splitmix64(splitmix64(key) ^ counter)
+    j = torch.arange(2 * n_hyp, device=key.device)
+    r = torch.remainder(_srl(splitmix64(base[:, None] ^ j), 1), n)
+    return r[:, :n_hyp], r[:, n_hyp:]
+
+
+def ransac_fundamental(x1, x2, valid, key, counter, n_hyp: int = 64,
                        thresh: float = 2e-3):
     """Batched-hypothesis RANSAC on the fundamental matrix.
 
-    x1, x2 (B,N,2) undistorted normalized correspondences; valid (B,N).
-    Returns the inlier mask (B,N) of the best hypothesis, or `valid` where
-    no hypothesis has 8 inliers."""
+    x1, x2 (B,N,2) undistorted normalized correspondences; valid (B,N);
+    key, counter (B,) int64, the hypotheses' key and frame counter per
+    sequence (`draw_hypotheses`).  Returns the inlier mask (B,N) of the
+    best hypothesis, or `valid` where no hypothesis has 8 inliers."""
     B, N = valid.shape
     # 8 distinct valid correspondences per hypothesis: an arithmetic
     # progression in compacted (valid-first) index space
     n_valid = torch.clamp(torch.sum(valid, dim=-1), min=9)[:, None]
     order = torch.argsort((~valid).to(torch.int32), dim=-1, stable=True)
-    r0, s = draw_hypotheses(gen, B, n_hyp, N)
+    r0, s = draw_hypotheses(key, counter, n_hyp, N)
     r0 = r0.to(n_valid.device) % n_valid
     smax = torch.clamp((n_valid - 1) // 8, min=1)
     s = 1 + s.to(n_valid.device) % smax

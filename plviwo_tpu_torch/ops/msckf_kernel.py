@@ -78,6 +78,9 @@ def gram_gate(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap: float):
       resid_cap: raw-residual pre-gate, in whitened units.
     Returns:
       G (B, D, D), c (B, D), ok (B, F) bool, chi2 (B, F) — all f32 but ok.
+      chi2 is meaningful only where a feature has more than k valid rows:
+      with fewer nothing is left after the projection, and the kernel
+      writes 0 there.
 
     CPU tensors take `gram_gate_plain`; CUDA tensors launch the kernel and
     count the launch in `gram_gate.launches`."""
@@ -98,9 +101,10 @@ def gram_gate(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap: float):
     cuda_lib.check("cov", cov, F32, (B, D, D), dev)
     cuda_lib.check("gate_vec", gate_vec, F32, (M + 1,), dev)
     lib = cuda_lib.library()
-    smem = lib.msckf_gram_gate_smem_bytes(M, D, k)
-    if smem > cuda_lib.SMEM_LIMIT:
-        raise ValueError(f"gram_gate: M={M}, D={D} need {smem} B of shared memory")
+    smem = lib.msckf_gram_gate_smem_bytes(M, D, k)  # 0: sizes it does not take
+    if not 0 < smem <= cuda_lib.SMEM_LIMIT:
+        raise ValueError(f"gram_gate: sizes the kernel does not take: M={M} D={D} k={k} "
+                         f"(M <= 64 rows, D <= 256 columns; {smem} B of shared memory)")
 
     P = torch.empty((B, F, M - k, D + 1), dtype=F32, device=dev)
     ok = torch.empty((B, F), dtype=torch.bool, device=dev)

@@ -147,7 +147,8 @@ def _frame_stage_times(state, ts, f, consts):
         (ts.pyr0, ts.pyr1, ts.pyr2), pyr, ts.uv, ts.valid & ts.has_prev[:, None], 3, 7, 6))
     kb = state.cam_k[:, :1]
     timed("undistort+RANSAC", lambda: klt.ransac_fundamental(
-        *cam.undistort(torch.cat([ts.uv, uv], 1).double(), kb, 0).split(N, dim=1), ok, ts.gen))
+        *cam.undistort(torch.cat([ts.uv, uv], 1).double(), kb, 0).split(N, dim=1), ok, ts.key,
+        ts.counter))
     timed("detect_grid", lambda: klt.detect_grid(pyr[0], uv, ok, 16, 12, N, min_px_dist=10.0))
     ts, harvest = timed("track_frame (all front-end)", lambda: frame.track_frame(
         ts, f["img"], state.cam_k[:, 0], f["t_new"], slot1))

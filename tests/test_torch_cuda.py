@@ -43,8 +43,12 @@ def _systems(rng, B, F, M, D, k, dev):
     Hf = rng.normal(size=(B, F, M, k)).astype(F32)
     r = rng.normal(size=(B, F, M)).astype(F32)
     rowmask = rng.uniform(size=(B, F, M)) < 0.7
+    # features with 0, k + 1, 1 and k valid rows: the early exit (<= k rows)
+    # and the least count that still runs the chain
     rowmask[:, 0] = False
     rowmask[:, 1] = np.arange(M) < (k + 1)
+    rowmask[:, 2] = np.arange(M) < 1
+    rowmask[:, 3] = np.arange(M) < k
     A = rng.normal(size=(B, D, 2 * D)).astype(F32)
     cov = (A @ A.transpose(0, 2, 1) / (2 * D) * 0.05).astype(F32)
     return [torch.as_tensor(a, device=dev) for a in (Hx, Hf, r, rowmask, cov)]
@@ -60,7 +64,12 @@ def _gate_vec(M, chi2_mult, dev):
     # the CPU tests' shapes: fewer rows than one pass-1 row chunk, and D + 1
     # not a multiple of the pass-2 tile
     (3, 1, 8, 12, 40), (4, 1, 8, 12, 40),
-    (3, 64, 128, 16, 124)])  # the images-in frame: 128 slots x 8 obs, D = 124
+    (3, 64, 128, 16, 124),  # the images-in frame: 128 slots x 8 obs, D = 124
+    # F not a multiple of the features per block; one sequence; M - k > 32;
+    # D = 162: 648-byte rows, 8-byte aligned on odd rows; D = 41: rows only
+    # 4-byte aligned
+    (3, 2, 13, 16, 124), (3, 1, 40, 40, 162), (3, 3, 6, 40, 162), (4, 1, 5, 64, 33),
+    (4, 3, 7, 12, 41)])
 def test_kernel_matches_plain(cuda_device, k, B, F, M, D):
     Hx, Hf, r, rowmask, cov = _systems(np.random.default_rng(30 + k + M), B, F, M, D, k,
                                        cuda_device)
@@ -75,8 +84,31 @@ def test_kernel_matches_plain(cuda_device, k, B, F, M, D):
     for a, b in ((G1, G0), (c1, c0)):
         sc = float(b.abs().max()) + 1e-9
         torch.testing.assert_close(a, b, atol=2e-5 * sc, rtol=2e-4)
-    has = rowmask.sum(-1) > k
+    n = rowmask.sum(-1)
+    has = n > k
     torch.testing.assert_close(chi1[has], chi0[has], rtol=1e-3, atol=0.0)
+    # the early exit: no projected rows left, nothing accepted, chi2 = 0
+    assert not bool(ok1[~has].any()) and bool((chi1[~has] == 0).all())
+    assert not bool(ok1[n == k + 1].any())
+
+
+@pytest.mark.cuda
+def test_kernel_selects_away_unwritten_rows(cuda_device):
+    """Pass 1 writes the projected rows of accepted features only; pass 2
+    must select zeros for the others whatever the scratch memory held (here
+    NaN left by a freed tensor that the allocator hands out again)."""
+    k, B, F, M, D = 3, 8, 128, 16, 124
+    Hx, Hf, r, rowmask, cov = _systems(np.random.default_rng(7), B, F, M, D, k, cuda_device)
+    args = (Hx, Hf, r, rowmask, torch.full(r.shape, 1.0 / 1.3, device=cuda_device), cov,
+            _gate_vec(M, 5.0, cuda_device), 15.0)
+    G0, c0, ok0, _ = gram_gate_plain(*args)
+    junk = torch.full((B * F * (M - k) * (D + 1),), float("nan"), device=cuda_device)
+    del junk
+    G1, c1, ok1, _ = gram_gate(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ok1, ok0) and 0 < int(ok1.sum()) < ok1.numel()
+    for a, b in ((G1, G0), (c1, c0)):
+        torch.testing.assert_close(a, b, atol=2e-5 * (float(b.abs().max()) + 1e-9), rtol=2e-4)
 
 
 @pytest.mark.cuda
@@ -92,6 +124,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
                   w, cov, gate_vec, 1.0)
     with pytest.raises(ValueError):
         gram_gate(Hx, Hf, r, rowmask, w, cov.cpu(), gate_vec, 1.0)
+    # more rows than two per lane, or more than eight covariance columns per lane
+    for F, M, D in ((4, 65, 24), (4, 10, 257)):
+        Hx, Hf, r, rowmask, cov = _systems(np.random.default_rng(6), 1, F, M, D, 3, cuda_device)
+        with pytest.raises(ValueError, match="does not take"):
+            gram_gate(Hx, Hf, r, rowmask, torch.ones_like(r), cov, _gate_vec(M, 1.0, cuda_device),
+                      1.0)
 
 
 @pytest.mark.cuda

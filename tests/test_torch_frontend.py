@@ -172,25 +172,50 @@ def test_ransac_matches_jax_with_replayed_draws(monkeypatch):
                                               jnp.asarray(valid), key))
     k1, k2 = jax.random.split(key)
 
-    def replay(gen, batch, n_hyp, n_pts):
+    def replay(key, counter, n_hyp, n_pts):
         draw = [np.asarray(jax.random.randint(k, (n_hyp, 1), 0, n_pts))[:, 0] for k in (k1, k2)]
         return tuple(torch.as_tensor(d)[None].long() for d in draw)
 
     monkeypatch.setattr(tklt, "draw_hypotheses", replay)
-    got = tklt.ransac_fundamental(_t(x1), _t(x2), _t(valid), None)
+    got = tklt.ransac_fundamental(_t(x1), _t(x2), _t(valid), torch.tensor([11]), torch.tensor([0]))
     np.testing.assert_array_equal(got[0].numpy(), want)
     assert 40 < int(want.sum()) < int(valid.sum())  # the outliers are gated out
 
 
 def test_ransac_draws_come_from_the_generator():
-    """Without a replay the draws come from the caller's generator: the same
-    seed gives the same inlier mask."""
+    """Without a replay the draws come from the port's generator, a
+    stateless hash of each sequence's key and frame counter: the same key
+    and counter give the same draws and inlier mask, sequence b of a batch
+    draws as it would alone, and another counter or key draws anew."""
+    key, counter = torch.tensor([5, 6, 7]), torch.tensor([0, 3, 9])
+    r0, s = tklt.draw_hypotheses(key, counter, 64, 40)
+    for b in range(3):
+        alone = tklt.draw_hypotheses(key[b:b + 1], counter[b:b + 1], 64, 40)
+        assert torch.equal(alone[0][0], r0[b]) and torch.equal(alone[1][0], s[b])
+    assert r0.shape == s.shape == (3, 64) and int(r0.min()) >= 0 and int(r0.max()) < 40
+    assert not torch.equal(tklt.draw_hypotheses(key, counter + 1, 64, 40)[0], r0)
+    assert not torch.equal(r0[0], r0[1])
     rng = np.random.default_rng(8)
     x1 = _t(rng.normal(scale=0.3, size=(2, 40, 2))[0])
     x2 = x1 + 0.01
     valid = torch.ones((1, 40), dtype=torch.bool)
-    masks = []
-    for _ in range(2):
-        gen = torch.Generator().manual_seed(5)
-        masks.append(tklt.ransac_fundamental(x1, x2, valid, gen))
+    masks = [tklt.ransac_fundamental(x1, x2, valid, key[:1], counter[:1]) for _ in range(2)]
     assert torch.equal(masks[0], masks[1])
+
+
+def test_splitmix64_matches_the_reference():
+    """The hash's int64 arithmetic wraps as 64-bit words do (reference:
+    splitmix64 on Python integers; its first output from seed 0 is
+    0xE220A8397B1DCDAF)."""
+    mask = (1 << 64) - 1
+
+    def ref(x):
+        z = (x + 0x9E3779B97F4A7C15) & mask
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+        return z ^ (z >> 31)
+
+    xs = [0, 1, 12345, (1 << 63) - 1, -1, -(1 << 63), 987654321987]
+    got = tklt.splitmix64(torch.tensor(xs, dtype=torch.int64)).tolist()
+    assert [g & mask for g in got] == [ref(x & mask) for x in xs]
+    assert ref(0) == 0xE220A8397B1DCDAF

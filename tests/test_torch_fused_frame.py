@@ -4,9 +4,9 @@
 (batch-first; on the CPU the LK and gate/Gram kernels' plain versions)
 against the JAX `track_frame` / `fused_frame(use_lines=False)` with its XLA
 defaults, on frames rendered by the JAX simulator.  RANSAC's hypotheses
-come from JAX's threefry PRNG, which no torch generator reproduces: the
-port draws them through `ops.klt.draw_hypotheses`, which these tests
-replace with a replay of JAX's draws.  Also: the port's simulator and input
+come from JAX's threefry PRNG, which the port's counter hash does not
+reproduce: the port draws them through `ops.klt.draw_hypotheses`, which
+the parity tests replace with a replay of JAX's draws.  Also: the port's simulator and input
 builders against the JAX ones, and its copies of the layout and the chi2
 table.
 
@@ -53,21 +53,20 @@ WHEEL_NOISE = (0.05, 0.05, 0.02)
 
 
 class JaxDraws:
-    """Stands in for `klt.draw_hypotheses`: replays the draws of JAX's
-    track_frame (key split per frame) and ransac_fundamental (split again,
-    two randint calls) for sequences whose keys start at PRNGKey(seed)."""
+    """Stands in for `klt.draw_hypotheses`: replays, from each sequence's
+    key and frame counter, the draws of JAX's track_frame for a sequence
+    whose key started at PRNGKey(key) and was split once per tracked frame,
+    and of ransac_fundamental (split again, two randint calls)."""
 
-    def __init__(self, seeds):
-        self.keys = [jax.random.PRNGKey(s) for s in seeds]
-
-    def __call__(self, gen, batch, n_hyp, n):
-        assert batch == len(self.keys)
+    def __call__(self, key, counter, n_hyp, n):
         draws = []
-        for i, key in enumerate(self.keys):
-            self.keys[i], sub = jax.random.split(key)
+        for seed, count in zip(key.tolist(), counter.tolist()):
+            k = jax.random.PRNGKey(seed)
+            for _ in range(count + 1):
+                k, sub = jax.random.split(k)
             k1, k2 = jax.random.split(sub)
-            draws.append([np.asarray(jax.random.randint(k, (n_hyp, 1), 0, n))[:, 0]
-                          for k in (k1, k2)])
+            draws.append([np.asarray(jax.random.randint(kk, (n_hyp, 1), 0, n))[:, 0]
+                          for kk in (k1, k2)])
         return tuple(torch.as_tensor(np.stack([d[j] for d in draws])).long() for j in (0, 1))
 
 
@@ -142,7 +141,7 @@ def test_simulator_and_builders_match_jax():
 
 def test_track_frame_matches_jax(scene, monkeypatch):
     sim, frames = scene
-    monkeypatch.setattr(klt, "draw_hypotheses", JaxDraws([0]))
+    monkeypatch.setattr(klt, "draw_hypotheses", JaxDraws())
     k = np.asarray(sim.cfg.intrinsics)
     jts = j_make_track_state(480, 640, n_pts=N_PTS, max_lines=16, max_obs=6)
     tts = frame.make_track_state(480, 640, n_pts=N_PTS, max_obs=6, device="cpu")
@@ -190,16 +189,16 @@ def _assert_frame_close(tstate, tm, jstate, jm, b=0):
     assert np.max(np.abs(tstate.cov[b].numpy() - cov)) < 1e-4 * np.max(np.abs(cov))
 
 
-def _sequences(sim, frames, n_seq):
+def _sequences(sim, frames, n_seq, layout=LAYOUT, n_frames=4):
     """Per-sequence inputs: the JAX state seeded from ground truth (moved
     by 1 cm per sequence) and the frames with per-sequence pixel noise."""
-    base = _seed_state(sim, JLayout(**LAYOUT), T0)
+    base = _seed_state(sim, JLayout(**layout), T0)
     states, seqs = [], []
     for b in range(n_seq):
         states.append(base.replace(p=base.p + 0.01 * b, p_fej=base.p_fej + 0.01 * b))
         rng = np.random.default_rng(100 + b)
         seqs.append([dict(f, img=np.clip(f["img"] + (2e-3 * b) * rng.normal(size=f["img"].shape),
-                                         0, 1).astype(np.float32)) for f in frames[:4]])
+                                         0, 1).astype(np.float32)) for f in frames[:n_frames]])
     return states, seqs
 
 
@@ -209,7 +208,7 @@ def test_fused_frame_matches_jax(scene, monkeypatch, n_seq):
     that differ (state, pixel noise, RANSAC key), each held to its own JAX
     run."""
     sim, frames = scene
-    monkeypatch.setattr(klt, "draw_hypotheses", JaxDraws(range(n_seq)))
+    monkeypatch.setattr(klt, "draw_hypotheses", JaxDraws())
     jstates, seqs = _sequences(sim, frames, n_seq)
     tstate = FilterState.from_numpy([_jax_state_arrays(s) for s in jstates],
                                     jstates[0].layout, device="cpu")
@@ -227,6 +226,103 @@ def test_fused_frame_matches_jax(scene, monkeypatch, n_seq):
     assert accepted > 0 and int(tm["wheel_accepted"].sum()) == n_seq
     if n_seq == 2:
         assert not torch.equal(tstate.p[0], tstate.p[1])
+
+
+def test_fused_frame_clone_ring_wrap_matches_jax(scene, monkeypatch):
+    """Five frames through a 3-clone ring: the forced drop of the oldest
+    clone and the liveness test that rejects observations on a reused slot
+    run, and the port still equals JAX frame by frame."""
+    sim, frames = scene
+    layout = dict(LAYOUT, n_clones=3)
+    monkeypatch.setattr(klt, "draw_hypotheses", JaxDraws())
+    dropped = []
+
+    def counting_liveness(state, hist_slot, hist_t, obs_mask):
+        live = liveness(state, hist_slot, hist_t, obs_mask)
+        dropped.append(int((obs_mask & ~live).sum()))
+        return live
+
+    liveness = frame._liveness
+    monkeypatch.setattr(frame, "_liveness", counting_liveness)
+    jstates, seqs = _sequences(sim, frames, 1, layout, n_frames=5)
+    tstate = FilterState.from_numpy([_jax_state_arrays(jstates[0])], jstates[0].layout,
+                                    device="cpu")
+    tts = frame.make_track_state(480, 640, n_pts=N_PTS, max_obs=4, device="cpu")
+    jts = j_make_track_state(480, 640, n_pts=N_PTS, max_lines=16, max_obs=4)
+    jg, tg = jnp.asarray([0.0, 0.0, 9.81]), torch.tensor([0.0, 0.0, 9.81], dtype=F64)
+    for f in seqs[0]:
+        tstate, tts, tm = _run_torch(tstate, tts, [f], tg)
+        jstates[0], jts, jm = _run_jax(jstates[0], jts, f, jg)
+        _assert_frame_close(tstate, tm, jstates[0], jm)
+    assert int(tstate.clone_valid.sum()) == 3 and sum(dropped) > 0
+
+
+def _port_frames(seqs, jstates, n_frames, seed):
+    """The port's own frames (its RANSAC hash, no replay) over the sequences
+    of `seqs` as one batch; returns per-frame (state, ts, metrics)."""
+    tstate = FilterState.from_numpy([_jax_state_arrays(s) for s in jstates],
+                                    jstates[0].layout, device="cpu")
+    tts = frame.make_track_state(480, 640, n_pts=N_PTS, max_obs=4, seed=seed,
+                                 batch=len(seqs), device="cpu")
+    tg = torch.tensor([0.0, 0.0, 9.81], dtype=F64)
+    out = []
+    for i in range(n_frames):
+        tstate, tts, tm = _run_torch(tstate, tts, [s[i] for s in seqs], tg)
+        out.append((tstate, tts, tm))
+    return out
+
+
+def test_fused_frame_batch_equals_single_sequences(scene):
+    """Sequence b of a B = 3 batch (keys 0, 1, 2) runs as it does alone
+    with seed b: each sequence's RANSAC draws depend on its own key and
+    frame counter only."""
+    sim, frames = scene
+    jstates, seqs = _sequences(sim, frames, 3)
+    batch = _port_frames(seqs, jstates, 4, seed=0)
+    for b in range(3):
+        alone = _port_frames(seqs[b:b + 1], jstates[b:b + 1], 4, seed=b)
+        for (s3, t3, m3), (s1, t1, m1) in zip(batch, alone):
+            for k in ("accepted", "wheel_accepted", "tracked", "harvested"):
+                assert int(m3[k][b]) == int(m1[k][0]), (b, k)
+            for name in ("valid", "n_obs"):
+                assert torch.equal(getattr(t3, name)[b], getattr(t1, name)[0]), (b, name)
+            assert float((s3.p[b] - s1.p[0]).abs().max()) < 1e-5
+            sc = float(s1.cov[0].abs().max())
+            assert float((s3.cov[b] - s1.cov[0]).abs().max()) < 1e-4 * sc
+    assert sum(int(m["accepted"].sum()) for _, _, m in batch) > 0
+
+
+def test_track_frame_twice_from_one_state_is_identical(scene):
+    """A TrackState is a value: one frame run twice from the same state
+    gives the same tracks, histories, harvest and counter."""
+    sim, frames = scene
+    k = torch.as_tensor(np.asarray(sim.cfg.intrinsics))[None].expand(2, -1)
+    ts = frame.make_track_state(480, 640, n_pts=N_PTS, max_obs=4, batch=2, device="cpu")
+
+    def run(ts, i):
+        img = torch.as_tensor(np.stack([frames[i]["img"]] * 2))
+        return frame.track_frame(ts, img, k, torch.full((2,), frames[i]["t"], dtype=F64),
+                                 torch.full((2,), i))
+
+    ts, _ = run(ts, 0)
+    (ta, ha), (tb, hb) = run(ts, 1), run(ts, 1)
+    for f in dataclasses.fields(ta):
+        assert torch.equal(getattr(ta, f.name), getattr(tb, f.name)), f.name
+    assert all(torch.equal(x, y) for x, y in zip(ha, hb))
+    assert int(ta.counter[0]) == 2 and int(ts.counter[0]) == 1 and int(ta.valid.sum()) > 0
+
+
+def test_make_track_state_takes_jax_positional_arguments():
+    """A positional call written for JAX's (height, width, n_pts, max_lines,
+    max_obs, seed) gives the port the same n_pts, max_obs and key; batch
+    and device are keyword-only."""
+    t = frame.make_track_state(480, 640, 48, 16, 6, 3, device="cpu")
+    j = j_make_track_state(480, 640, 48, 16, 6, 3)
+    assert t.hist_uv.shape[1:] == (48, 6, 2) and j.hist_uv.shape == (48, 6, 2)
+    assert t.key.tolist() == [3] and t.counter.tolist() == [0]
+    assert frame.make_track_state(32, 32, 4, 2, 2, 5, batch=3, device="cpu").key.tolist() == [5, 6, 7]
+    with pytest.raises(TypeError):
+        frame.make_track_state(32, 32, 4, 2, 2, 5, 3)
 
 
 @pytest.mark.parametrize("flag", ["use_lines", "use_gps", "use_stereo", "use_dynamic"])
@@ -257,7 +353,7 @@ def test_entry_points_default_to_the_card(entry):
             make_state(layout, device="cpu").to_numpy(), layout),
         "batch_args": lambda: examples.batch_args(examples.example_inputs(device="cpu"), 2),
         "example_inputs": lambda: examples.example_inputs(),
-        "make_track_state": lambda: frame.make_track_state(32, 32, n_pts=4, max_obs=2),
+        "make_track_state": lambda: frame.make_track_state(32, 32, 4, 2, 2),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
