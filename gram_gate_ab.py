@@ -26,20 +26,24 @@ from pathlib import Path
 import chip_smoke as cs
 
 
-def build_other(src: Path) -> ctypes.CDLL:
-    """`src` compiled into a shared library of its own under build/."""
+def build_other(src: Path, entry: str = "msckf_gram_gate") -> tuple[ctypes.CDLL, str]:
+    """`src` compiled with the port's nvcc flags into a shared library of its
+    own under build/, its C function `entry` typed as this version's.
+    Returns (library, the compiler's `-Xptxas -v` report)."""
     from plviwo_tpu_torch.ops import cuda_lib
 
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = cuda_lib.BUILD_DIR / f"gram_gate_ab_{digest}.so"
+    so = cuda_lib.BUILD_DIR / f"{entry}_ab_{digest}.so"
+    log = so.with_suffix(".log")
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(so),
-                        str(src)], check=True, capture_output=True)
+        out = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(so),
+                              str(src)], check=True, capture_output=True, text=True)
+        log.write_text(out.stdout + out.stderr)
     lib = ctypes.CDLL(str(so))
-    lib.msckf_gram_gate.argtypes = cuda_lib.library().msckf_gram_gate.argtypes
-    lib.msckf_gram_gate.restype = ctypes.c_int
-    return lib
+    fn, this = getattr(lib, entry), getattr(cuda_lib.library(), entry)
+    fn.argtypes, fn.restype = this.argtypes, this.restype
+    return lib, log.read_text() if log.exists() else ""
 
 
 def call(lib, Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap):
@@ -93,15 +97,15 @@ def main() -> int:
     from plviwo_tpu_torch.ops.msckf_kernel import gram_gate, gram_gate_plain
 
     dev = torch.device("cuda", 0)
-    other = build_other(Path(sys.argv[1]))
+    other, _ = build_other(Path(sys.argv[1]))
     sim, frames = cs.images_in_inputs(dev)
-    captured = []
+    captured = {}
     cs.run_images_in(sim, frames, dev, captured)
     cases = [(f"k={k} B={Bn} F={F} M={M} D={D}", cs.gram_args(k, Bn, F, M, D, dev))
              for k, Bn, F, M, D in ((3, cs.B_IMG, cs.N_PTS, 2 * cs.MAX_OBS, 124),
                                     (3, cs.B, cs.F_PTS, cs.M_ROWS, 162),
                                     (4, cs.B, cs.L_LINES, cs.M_ROWS, 162))]
-    cases.append(("captured images-in frame", tuple(captured)))
+    cases.append(("captured images-in frame", captured["gram_gate"]))
     for tag, args in cases:
         ref = gram_gate_plain(*args)
         cs.check_gram(gram_gate(*args), ref, tag)

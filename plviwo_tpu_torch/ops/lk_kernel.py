@@ -5,7 +5,8 @@ features from the previous pyramid to the next, coarse to fine, and returns
 (uv (B,N,2), ok (B,N)).  On CUDA tensors it launches the hand-written
 kernel `csrc/lk_pyramid.cu` (built with nvcc for sm_90a at first use by
 `ops/cuda_lib.py`): ONE launch walks every level for every feature of every
-sequence, reading its patches straight from the level images.  On CPU
+sequence, one warp per feature, reading its patches straight from the level
+images.  On CPU
 tensors it runs the kernel's plain version, `ops/klt.pyramidal_lk_conv`.
 There is no fallback between the two.
 """
@@ -38,9 +39,11 @@ def lk_pyramid(prev_pyr, next_pyr, uv_prev, valid, levels: int, half: int = 7,
     B, N = valid.shape
     W = 2 * half + 1
     PS = W + 2 * max(drift, drift_fine) + 4
-    if not 1 <= levels <= 4 or W * W > 256 or min(drift, drift_fine, iters) < 0:
+    # the kernel's window is at most 16 x 16 (a lane owns one column of 8
+    # rows, a warp 16 columns by 16 rows): half <= 7
+    if not 1 <= levels <= 4 or not 0 <= half <= 7 or min(drift, drift_fine, iters) < 0:
         raise ValueError(f"lk_pyramid: levels={levels}, half={half}, drift={drift}/"
-                         f"{drift_fine}, iters={iters} not supported")
+                         f"{drift_fine}, iters={iters}: sizes the kernel does not take")
     dev = uv_prev.device
     cuda_lib.check("uv_prev", uv_prev, F32, (B, N, 2), dev)
     cuda_lib.check("valid", valid, torch.bool, (B, N), dev)
@@ -53,6 +56,10 @@ def lk_pyramid(prev_pyr, next_pyr, uv_prev, valid, levels: int, half: int = 7,
         cuda_lib.check(f"next_pyr[{l}]", next_pyr[l], F32, (B, H, Wd), dev)
         dims.append((H, Wd))
     lib = cuda_lib.library()
+    smem = lib.lk_pyramid_smem_bytes(half, drift, drift_fine)
+    if not 0 < smem <= cuda_lib.SMEM_LIMIT:
+        raise ValueError(f"lk_pyramid: drift={drift}/{drift_fine}: sizes the kernel does not "
+                         f"take ({smem} B of shared memory per block)")
 
     ptrs = ctypes.c_void_p * levels
     ints = ctypes.c_int * levels

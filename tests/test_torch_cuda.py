@@ -13,7 +13,7 @@ Tolerances: gate/Gram `ok` equal, G and c within atol 2e-5 max|G|, rtol
 max|dp| < 1e-5 and max|dcov| < 1e-4 max|cov|; the LK kernel `ok` equal on
 >= 99% of the features and, where both accept, median |duv| < 1e-3 px and
 max < 0.05 px (the bounds of tests/test_lk_kernel.py: the kernel's samples
-equal the plain version's, its block sums take another order).
+equal the plain version's, its warp sums take another order).
 """
 
 import numpy as np
@@ -165,7 +165,11 @@ def _lk_inputs(B, n_pts, dev, seed=0):
     return lk_pair(sim, B, n_pts, 1.0, gen)
 
 
-def _assert_lk_close(out, ref):
+def _assert_lk_close(out, ref, sel=None):
+    """The kernel's (uv, ok, err, det) against the plain version's, over the
+    features `sel` (all by default)."""
+    if sel is not None:
+        out, ref = ([t[sel] for t in o] for o in (out, ref))
     (uv1, ok1, err1, det1), (uv0, ok0, err0, det0) = out, ref
     assert float((ok1 == ok0).float().mean()) >= 0.99
     both = ok1 & ok0
@@ -178,18 +182,72 @@ def _assert_lk_close(out, ref):
     torch.testing.assert_close(err1[both], err0[both], rtol=1e-3, atol=1e-6)
 
 
+def _nan_empty(empty):
+    """torch.empty that fills what it returns with NaN (bool: byte 255), so
+    an output the kernel leaves unwritten shows."""
+    def filled(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if t.dtype == torch.bool:
+            t.view(torch.uint8).fill_(255)
+        else:
+            t.fill_(float("nan"))
+        return t
+    return filled
+
+
+# case: (B, n_pts, levels, half, variant).  The main path's size and a small
+# one; one and two levels; a 7 x 7 window; B * N not a multiple of the
+# features per block; features within a few pixels of the border (the patch
+# origins clip); the last sequence's images flat (det = 0: no step, not
+# ok); a third of the features invalid.
+LK_CASES = {
+    "main-path": (64, 128, 3, 7, None), "small": (2, 48, 3, 7, None),
+    "levels-1": (2, 48, 1, 7, None), "levels-2": (2, 48, 2, 7, None),
+    "half-3": (2, 48, 3, 3, None), "ragged-3x37": (3, 37, 3, 7, None),
+    "border": (2, 48, 3, 7, "border"), "flat": (3, 48, 3, 7, "flat"),
+    "invalid": (2, 48, 3, 7, "invalid"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n_pts", [(2, 48), (64, 128)])  # small; the main path's
-def test_lk_kernel_matches_plain(cuda_device, B, n_pts):
+@pytest.mark.parametrize("case", list(LK_CASES))
+def test_lk_kernel_matches_plain(cuda_device, case, monkeypatch):
     from plviwo_tpu_torch.ops import klt, lk_kernel
 
+    B, n_pts, levels, half, variant = LK_CASES[case]
     prev_pyr, next_pyr, uv, valid = _lk_inputs(B, n_pts, cuda_device)
+    H, W = prev_pyr[0].shape[-2:]
+    sel = torch.ones_like(valid)
+    if variant == "border":
+        uv[:, :8] = torch.tensor([[1.5, 2.5], [W - 2.3, 3.1], [2.2, H - 1.6], [W - 1.2, H - 2.8],
+                                  [W / 2 + 0.3, 0.7], [W / 2 - 0.4, H - 4.2], [4.6, H / 2 + 0.2],
+                                  [W - 5.1, H / 2 - 0.6]], device=cuda_device)
+        valid[:, :8] = True
+    elif variant == "flat":
+        prev_pyr, next_pyr = (tuple(torch.cat([p[:-1], torch.full_like(p[-1:], 0.5)])
+                                    for p in pyr) for pyr in (prev_pyr, next_pyr))
+        sel[-1] = False
+    elif variant == "invalid":
+        valid[:, ::3] = False
+        sel = valid.clone()
+    args = (prev_pyr, next_pyr, uv, valid, levels, half, 6)
     before = lk_kernel.lk_pyramid.launches
-    out = lk_kernel.lk_pyramid(prev_pyr, next_pyr, uv, valid, 3, 7, 6)
-    ref = klt.pyramidal_lk_conv_full(prev_pyr, next_pyr, uv, valid, 3, 7, 6)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", _nan_empty(torch.empty))
+        out = lk_kernel.lk_pyramid(*args)
+    ref = klt.pyramidal_lk_conv_full(*args)
     torch.cuda.synchronize()
+    uv1, ok1, err1, det1 = out
+    assert all(bool(torch.isfinite(t).all()) for t in (uv1, err1, det1))
+    assert int(ok1.view(torch.uint8).max()) <= 1
+    _assert_lk_close(out, ref, sel)
+    if variant == "flat":  # no step at any level: uv stays uv_prev, and fails
+        for o in (out, ref):
+            assert bool((o[3][-1] == 0).all()) and not bool(o[1][-1].any())
+            assert torch.equal(o[0][-1], uv[-1])
+    if variant == "invalid":
+        assert not bool(ok1[~valid].any()) and not bool(ref[1][~valid].any())
     assert lk_kernel.lk_pyramid.launches == before + 1
-    _assert_lk_close(out, ref)
 
 
 @pytest.mark.cuda
@@ -206,6 +264,10 @@ def test_lk_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):  # a 29-px patch does not fit a 15-px level
         lk_kernel.pyramidal_lk(tuple(p[:, :15, :15].contiguous() for p in prev_pyr),
                                tuple(p[:, :15, :15].contiguous() for p in next_pyr), uv, valid, 3)
+    # a window wider than 16 px (a lane's column of 8 rows, 16 columns)
+    with pytest.raises(ValueError, match="does not take"):
+        lk_kernel.pyramidal_lk(prev_pyr, next_pyr, uv, valid, 3, half=8)
+    lk_kernel.pyramidal_lk(prev_pyr, next_pyr, uv, valid, 3, half=7)
 
 
 @pytest.mark.cuda
