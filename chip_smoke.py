@@ -8,8 +8,8 @@ Phases (any failure raises, so the exit code is non-zero):
      kernel and the pyramidal LK kernel) with nvcc for sm_90a;
   3. gate/Gram kernel vs its plain PyTorch version at the filter bench's
      shapes (B = 128, M = 40, D = 162; points k = 3, F = 40 and lines
-     k = 4, F = 16) and at the images-in frame's (k = 3, B = 64, F = 128,
-     M = 16, D = 124), with times and bounds;
+     k = 4, F = 16) and at the images-in frame's (B = 64, M = 16, D = 132;
+     points k = 3, F = 128 and lines k = 4, F = 24), with times and bounds;
   4. LK kernel vs its plain version at the images-in frame's shapes
      (B = 64, N = 128, 640 x 480, 3 levels, W = 15, 6 iterations) on two
      consecutive simulator frames with per-sequence pixel noise, with times
@@ -19,16 +19,23 @@ Phases (any failure raises, so the exit code is non-zero):
      samples) — one step with real point, line and wheel rows and exactly
      two gate/Gram launches, the same step with the plain gate, then
      chained steps timed as frames/s;
-  6. images-in path: `core.frame.fused_frame` (mono points + wheel, as
-     `VioSystem.feed_image` runs by default) at the bench's images-in width
-     (B = 64 sequences, 640 x 480, 128 slots x 8 obs, D = 124) on the
-     port's simulator: 6 warm-up and 12 timed frames with one LK and one
-     gate/Gram launch each, accepted point and wheel rows, every sequence
-     within 0.45 m of ground truth; the same 18 frames through the plain
-     LK give the same tracked count and accepted total within 1%;
+  6. images-in path: `core.frame.fused_frame` as bench.py's images-in unit
+     (mono points, run-length lines, W3D_ANG wheel and GPS rows; B = 64
+     sequences, 640 x 480, 128 point slots x 8 obs, 24 line slots, up to 4
+     GPS fixes a frame, D = 132) on the port's simulator: 6 warm-up and 12
+     timed frames with one LK and two gate/Gram launches (points, lines)
+     each; accepted point, line, wheel and GPS rows and tracked lines in
+     the timed frames, every sequence within 0.45 m of ground truth; the
+     same 18 frames through the plain LK give the same tracked count, and
+     accepted point and line totals within 1%;
   7. both kernels vs their plain versions on the arguments the images-in
-     path gave them in its last frame (most gate/Gram features have too few
-     rows and exit early), with times and bounds.
+     path gave them in its last frame (both gate/Gram calls, points and
+     lines; most features have too few rows and exit early), with times
+     and bounds;
+  8. closed loop: 60 frames of points, lines and wheel at B = 4 (the
+     configuration and gates of tests/test_fused_frame.py:113-162 with
+     float32 camera tensors): every sequence's RMSE < 0.32 m, final error
+     < 0.45 m, accepted > 50 and wheel > 30.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
 JAX.
@@ -49,9 +56,12 @@ B, N_CLONES, F_PTS, N_OBS, L_LINES, IMU_N, N_WHEEL = 128, 22, 40, 20, 16, 32, 32
 N_CHAINED = 10
 M_ROWS = 2 * N_OBS
 SIGMA_PIX, CHI2_MULT = 1.0, 1.0
-# the images-in width (bench.py: bench_images_in, lines and GPS off)
+# the images-in width (bench.py: bench_images_in, with lines and GPS)
 B_IMG, H_IMG, W_IMG, N_PTS, MAX_OBS, GRID = 64, 480, 640, 128, 8, (16, 12)
+MAX_LINES, D_IMG = 24, 132
 N_WARM, N_TIMED = 6, 12
+# the closed loop (tests/test_fused_frame.py:113-162)
+B_LOOP, N_LOOP = 4, 60
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -100,8 +110,9 @@ def bound_ms(n_bytes, n_ops):
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
-def gram_bound(rowmask, ok, D, k):
-    """Bound of one gate/Gram call from what its inputs need: the valid rows
+def gram_work(rowmask, ok, D, k):
+    """(bytes, FP32 operations) of one gate/Gram call from what its inputs
+    need: the valid rows
     of Hx, Hf, r, w (and every mask byte), the covariances, the outputs;
     per feature with n >= k + 2 valid rows the Householder sweeps, Hv cov,
     the symmetric half of S, the Cholesky and solve, and for accepted
@@ -116,7 +127,7 @@ def gram_bound(rowmask, ok, D, k):
     ops = (2 * n * (k + D + 1) + k * 4 * n * (k + D + 1) + p * D * D * 2
            + p * (p + 1) * D + p**3 / 3 + p * p)
     ops = float((ops * live).sum() + (p * (D + 1) * (D + 2) * ok).sum())
-    return bound_ms(n_bytes, ops)
+    return n_bytes, ops
 
 
 def gram_args(k, Bn, F, M, D, dev):
@@ -166,12 +177,18 @@ def phase_gram(tag, args):
     ms = cuda_ms(lambda: gram_gate(*args))
     plain_ms = cuda_ms(lambda: gram_gate_plain(*args))
     rowmask, D, k = args[3], args[0].shape[-1], args[1].shape[-1]
-    bms, by = gram_bound(rowmask, ok1, D, k)
+    work = gram_work(rowmask, ok1, D, k)
+    bms, by = bound_ms(*work)
     live = int((rowmask.sum(-1) > k).sum())
     print(f"gate/Gram {tag}: ok {n_ok}/{ok1.numel()} ({live} with > k rows), max|dG|={err:.3e} "
           f"(max|G| {float(ref[0].abs().max()):.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bms:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, work=work)
+
+
+def gram_bound(rowmask, ok, D, k):
+    """Bound of one gate/Gram call (`bound_ms` of `gram_work`)."""
+    return bound_ms(*gram_work(rowmask, ok, D, k))
 
 
 def lk_bound(prev_pyr, next_pyr, uv_prev, levels, half, iters, drift, drift_fine):
@@ -398,7 +415,7 @@ def phase_filter_only(dev):
 
 def images_in_inputs(dev):
     """The bench's images-in sequence on the port's simulator: 18 frames of
-    B_IMG sequences (per-sequence pixel noise), IMU and wheel windows."""
+    B_IMG sequences (per-sequence pixel noise), IMU, wheel and GPS windows."""
     import torch
 
     from plviwo_tpu_torch.examples import frame_inputs
@@ -410,12 +427,14 @@ def images_in_inputs(dev):
     return sim, frame_inputs(sim, B_IMG, N_WARM + N_TIMED, gen)
 
 
-def run_images_in(sim, frames, dev, capture=None):
-    """The 18 frames through `fused_frame` from the ground-truth seed.
-    Returns (final state, per-frame metrics, tracked after the warm-up,
-    frames/s of the timed frames).  A dict `capture` receives the arguments
-    of the last frame's gate/Gram call under "gram_gate" and those of its LK
-    call, all ten positional, under "lk"."""
+def run_images_in(sim, frames, dev, capture=None, lines_gps=True):
+    """The 18 frames through `fused_frame` from the ground-truth seed: the
+    bench's whole unit, or with lines_gps=False points and wheel only
+    (D = 124).  Returns (final state, per-frame metrics, tracked after the
+    warm-up, frames/s of the timed frames).  A dict `capture` receives the
+    arguments of the last frame's two gate/Gram calls, points then lines,
+    under "gram_gate" and those of its LK call, all ten positional, under
+    "lk"."""
     import inspect
 
     import torch
@@ -429,7 +448,7 @@ def run_images_in(sim, frames, dev, capture=None):
         lk_sig = inspect.signature(lk)
 
         def recording_gram(*args):
-            capture["gram_gate"] = args
+            capture["gram_gate"] = capture.get("gram_gate", [])[-1:] + [args]
             return gram(*args)
 
         def recording_lk(*args, **kwargs):
@@ -447,10 +466,10 @@ def run_images_in(sim, frames, dev, capture=None):
     from plviwo_tpu_torch.core.state import FilterState
 
     c = sim.cfg
-    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
+    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True, n_gps=int(lines_gps))
     state = FilterState.from_numpy([examples.seed_state(sim, layout, 1.0)] * B_IMG, layout, dev)
-    ts = frame.make_track_state(H_IMG, W_IMG, n_pts=N_PTS, max_obs=MAX_OBS, seed=0,
-                                batch=B_IMG, device=dev)
+    ts = frame.make_track_state(H_IMG, W_IMG, N_PTS, MAX_LINES, MAX_OBS, 0, batch=B_IMG,
+                                device=dev)
     gravity = torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=dev)
     sigmas = (c.sigma_w, c.sigma_a, c.sigma_wb, c.sigma_ab)
     wheel_valid = torch.ones(B_IMG, dtype=torch.bool, device=dev)
@@ -460,24 +479,72 @@ def run_images_in(sim, frames, dev, capture=None):
             torch.cuda.synchronize()
             tracked_warm = int(metrics[-1]["tracked"].sum())
             t_start = time.perf_counter()
+        kw = dict(use_lines=False)
+        if lines_gps:
+            kw = dict(use_gps=True, gps_t=f["gps"][0], gps_p=f["gps"][1], gps_valid=f["gps"][2],
+                      sigma_gps=c.sigma_gps, gps_chi2_mult=8.0)
         state, ts, m = frame.fused_frame(
             state, ts, f["img"], *f["imu"], f["t_new"], *f["wheel"], wheel_valid, gravity,
             sigmas, 1.5, 8.0, 2.0, (0.05, 0.05, 0.02), model=0, window_size=1.0,
-            cam_dtype=torch.float32, min_track=4, grid_x=GRID[0], grid_y=GRID[1],
-            use_lines=False)
+            cam_dtype=torch.float32, min_track=4, grid_x=GRID[0], grid_y=GRID[1], **kw)
         metrics.append(m)
     torch.cuda.synchronize()
     fps = B_IMG * N_TIMED / (time.perf_counter() - t_start)
     return state, metrics, tracked_warm, fps
 
 
-def phase_images_in(dev):
+TIMED = ("accepted", "lines_accepted", "wheel_accepted", "gps_accepted")
+
+
+def check_near_truth(sim, frames, state, dev, what):
+    """p and cov finite and every sequence within 0.45 m of ground truth
+    (the bound of tests/test_fused_frame.py:159); returns the errors."""
+    import torch
+
+    if not (bool(torch.isfinite(state.p).all()) and bool(torch.isfinite(state.cov).all())):
+        raise AssertionError(f"{what}: p or cov is not finite")
+    p_gt = torch.as_tensor(sim.gt_pose(frames[-1]["t"])[1], device=dev)
+    err = torch.linalg.vector_norm(state.p - p_gt, dim=-1)
+    if float(err.max()) >= 0.45:
+        raise AssertionError(f"{what}: final |p - p_gt| up to {float(err.max()):.3f} m")
+    return err
+
+
+def phase_images_in_points(sim, frames, dev):
+    """The images-in frame with lines and GPS off (`feed_image`'s points +
+    wheel, D = 124): one LK and one gate/Gram launch per frame, no line
+    front-end, accepted point and wheel rows, every sequence near truth."""
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    n = len(frames)
+    lk_kernel.lk_pyramid.launches = 0
+    gram_gate.launches = 0
+    state, metrics, tracked_warm, fps = run_images_in(sim, frames, dev, lines_gps=False)
+    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                "msckf_gram_gate": gram_gate.launches}
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": n}:
+        raise AssertionError(f"points-only: {launches} kernel launches in {n} frames, want one "
+                             "each per frame")
+    tot = {k: int(sum(int(m[k].sum()) for m in metrics[N_WARM:]))
+           for k in ("accepted", "wheel_accepted", "line_tracked")}
+    if not (tracked_warm > 0 and tot["accepted"] > 0 and tot["wheel_accepted"] > 0
+            and tot["line_tracked"] == 0 and state.layout.dim == 124):
+        raise AssertionError(f"points-only: tracked after warm-up {tracked_warm}, {tot}, "
+                             f"D = {state.layout.dim}")
+    err = check_near_truth(sim, frames, state, dev, "points-only")
+    print(f"images-in path, points + wheel (lines and GPS off): B={B_IMG} D={state.layout.dim}: "
+          f"tracked after warm-up {tracked_warm}, timed {tot}; final |p - p_gt| max "
+          f"{float(err.max()):.4f} m; launches {launches}; {fps:.1f} frames/s")
+    return launches, fps
+
+
+def phase_images_in(sim, frames, dev):
     import torch
 
     from plviwo_tpu_torch.ops import klt, lk_kernel
     from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
 
-    sim, frames = images_in_inputs(dev)
     n = len(frames)
     captured = {}
     lk_kernel.lk_pyramid.launches = 0
@@ -485,24 +552,22 @@ def phase_images_in(dev):
     state, metrics, tracked_warm, fps = run_images_in(sim, frames, dev, captured)
     launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
                 "msckf_gram_gate": gram_gate.launches}
-    if launches != {"lk_pyramid": n, "msckf_gram_gate": n}:
-        raise AssertionError(f"{launches} kernel launches in {n} frames, want one each per frame")
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n}:
+        raise AssertionError(f"{launches} kernel launches in {n} frames, want one LK and two "
+                             "gate/Gram per frame")
 
     def totals(ms):
         timed = ms[N_WARM:]
-        return {"accepted": int(sum(int(m["accepted"].sum()) for m in timed)),
-                "wheel_accepted": int(sum(int(m["wheel_accepted"].sum()) for m in timed)),
-                "tracked_final": int(ms[-1]["tracked"].sum())}
+        out = {k: int(sum(int(m[k].sum()) for m in timed)) for k in TIMED + ("line_tracked",)}
+        out["tracked_final"] = int(ms[-1]["tracked"].sum())
+        return out
 
     tot = totals(metrics)
-    if not (tracked_warm > 0 and tot["accepted"] > 0 and tot["wheel_accepted"] > 0):
+    if not (tracked_warm > 0 and min(tot.values()) > 0):
         raise AssertionError(f"images-in path: tracked after warm-up {tracked_warm}, {tot}")
-    if not (bool(torch.isfinite(state.p).all()) and bool(torch.isfinite(state.cov).all())):
-        raise AssertionError("images-in path: p or cov is not finite")
-    p_gt = torch.as_tensor(sim.gt_pose(frames[-1]["t"])[1], device=dev)
-    err = torch.linalg.vector_norm(state.p - p_gt, dim=-1)
-    if float(err.max()) >= 0.45:  # the bound of tests/test_fused_frame.py:159
-        raise AssertionError(f"images-in path: final |p - p_gt| up to {float(err.max()):.3f} m")
+    if state.layout.dim != D_IMG:
+        raise AssertionError(f"images-in path: D = {state.layout.dim}, want {D_IMG}")
+    err = check_near_truth(sim, frames, state, dev, "images-in path")
 
     # the same frames with the plain LK (the frame module's LK bound to it)
     lk = lk_kernel.pyramidal_lk
@@ -513,13 +578,40 @@ def phase_images_in(dev):
         lk_kernel.pyramidal_lk = lk
     tot0 = totals(metrics0)
     if (tot0["tracked_final"] != tot["tracked_final"]
-            or abs(tot0["accepted"] - tot["accepted"]) > 0.01 * tot["accepted"]):
+            or any(abs(tot0[k] - tot[k]) > 0.01 * tot[k] for k in ("accepted", "lines_accepted"))):
         raise AssertionError(f"images-in path: kernel LK {tot} vs plain LK {tot0}")
-    print(f"images-in path: B={B_IMG} {W_IMG}x{H_IMG} n_pts={N_PTS} D={state.layout.dim}: "
-          f"tracked after warm-up {tracked_warm}, timed {tot} (plain LK {tot0}); final "
-          f"|p - p_gt| max {float(err.max()):.4f} m, mean {float(err.mean()):.4f} m; "
-          f"launches {launches}; {fps:.1f} frames/s (plain LK {fps0:.1f})")
+    print(f"images-in path: B={B_IMG} {W_IMG}x{H_IMG} n_pts={N_PTS} max_lines={MAX_LINES} "
+          f"D={state.layout.dim}: tracked after warm-up {tracked_warm}, timed {tot} (plain LK "
+          f"{tot0}); final |p - p_gt| max {float(err.max()):.4f} m, mean "
+          f"{float(err.mean()):.4f} m; launches {launches}; {fps:.1f} frames/s (plain LK "
+          f"{fps0:.1f})")
     return launches, fps, captured
+
+
+def phase_closed_loop(dev):
+    """60 frames of points, lines and wheel at B = 4, each sequence held to
+    the gates of tests/test_fused_frame.py:150-159."""
+    import torch
+
+    from plviwo_tpu_torch.examples import closed_loop
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=10.0, n_landmarks=350, n_lines=40, seed=3,
+                              width=W_IMG, height=H_IMG))
+    t0 = time.perf_counter()
+    out = closed_loop(sim, B_LOOP, N_LOOP, torch.Generator(device=dev).manual_seed(7))
+    wall = time.perf_counter() - t0
+    for b in range(B_LOOP):
+        print(f"closed loop, sequence {b}: RMSE {out['rmse'][b]:.4f} m, final "
+              f"{out['final'][b]:.4f} m, accepted {out['accepted'][b]}, lines "
+              f"{out['lines_accepted'][b]}, wheel {out['wheel_accepted'][b]}")
+    ok = (np.isfinite(out["errs"]).all() and (out["rmse"] < 0.32).all()
+          and (out["final"] < 0.45).all() and (out["accepted"] > 50).all()
+          and (out["wheel_accepted"] > 30).all())
+    if not ok:
+        raise AssertionError("closed loop: a sequence missed the gates RMSE < 0.32 m, final "
+                             "< 0.45 m, accepted > 50, wheel > 30")
+    print(f"closed loop: B={B_LOOP}, {N_LOOP} frames in {wall:.2f} s")
 
 
 def main() -> int:
@@ -553,35 +645,50 @@ def main() -> int:
     gram_filter = [phase_gram(f"k={k} B={B} F={F} M={M_ROWS} D=162",
                               gram_args(k, B, F, M_ROWS, 162, dev))
                    for k, F in ((3, F_PTS), (4, L_LINES))]
-    gram_img = phase_gram(f"k=3 B={B_IMG} F={N_PTS} M={2 * MAX_OBS} D=124",
-                          gram_args(3, B_IMG, N_PTS, 2 * MAX_OBS, 124, dev))
+    gram_img = [phase_gram(f"k={k} B={B_IMG} F={F} M={2 * MAX_OBS} D={D_IMG}",
+                           gram_args(k, B_IMG, F, 2 * MAX_OBS, D_IMG, dev))
+                for k, F in ((3, N_PTS), (4, MAX_LINES))]
     lk = phase_lk("synthetic", lk_args(dev))
 
     filter_launches, filter_fps = phase_filter_only(dev)
-    img_launches, img_fps, frame_args = phase_images_in(dev)
+    sim, frames = images_in_inputs(dev)
+    img_launches, img_fps, frame_args = phase_images_in(sim, frames, dev)
+    pts_launches, pts_fps = phase_images_in_points(sim, frames, dev)
     # the kernels on the inputs the images-in path gave them in its last frame
-    gram_frame = phase_gram("captured images-in frame " + "x".join(
-        str(n) for n in frame_args["gram_gate"][0].shape), frame_args["gram_gate"])
+    gram_frame = [phase_gram(f"captured images-in frame, {what} " + "x".join(
+        str(n) for n in args[0].shape), args)
+        for what, args in zip(("points", "lines"), frame_args["gram_gate"])]
     lk_frame = phase_lk("captured images-in frame", frame_args["lk"])
     print(f"frames/s: filter-only {filter_fps:.1f} at B={B}, images-in {img_fps:.1f} at "
-          f"B={B_IMG} on {card}")
+          f"B={B_IMG} (points + wheel only {pts_fps:.1f}) on {card}")
+    phase_closed_loop(dev)
 
-    # the filter-only shapes: one frame's two calls (k = 3 and k = 4) summed
-    gram_filter_sum = {k: sum(g[k] for g in gram_filter)
-                       for k in ("ms", "plain_ms", "bound_ms")}
+    # one frame's two calls (points k = 3, lines k = 4): times summed, the
+    # bound of their bytes and operations together
+    def per_frame(calls):
+        out = {k: sum(g[k] for g in calls) for k in ("ms", "plain_ms")}
+        out["bound_ms"], out["bound_by"] = bound_ms(*(sum(g["work"][i] for g in calls)
+                                                      for i in (0, 1)))
+        return out
+
+    gram_img_sum = per_frame(gram_img)
     print(json.dumps({"kernels": [
         {"name": "msckf_gram_gate", "route": "cuda",
          "source": "plviwo_tpu_torch/csrc/msckf_gram_gate.cu",
          "replaces": "plviwo_tpu/ops/msckf_kernel.py:205",
          "launches": img_launches["msckf_gram_gate"],
-         "max_abs_err": max(g["max_abs_err"] for g in gram_filter + [gram_img, gram_frame]),
-         "ms": gram_img["ms"], "plain_ms": gram_img["plain_ms"],
-         "bound_ms": gram_img["bound_ms"], "bound_by": gram_img["bound_by"],
-         "library_ms": None,
+         "max_abs_err": max(g["max_abs_err"] for g in gram_filter + gram_img + gram_frame),
+         "ms": gram_img_sum["ms"], "plain_ms": gram_img_sum["plain_ms"],
+         "bound_ms": gram_img_sum["bound_ms"], "bound_by": gram_img_sum["bound_by"],
+         "library_ms": None, "per": "images-in frame: points (k=3) + lines (k=4) calls",
+         "images_in_shapes": {name: {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                              for name, g in zip(("points", "lines"), gram_img)},
          "launches_by_path": {"images_in": img_launches["msckf_gram_gate"],
+                              "images_in_points_only": pts_launches["msckf_gram_gate"],
                               "filter_only": filter_launches},
-         "filter_only_shapes": gram_filter_sum,
-         "captured_frame": {k: gram_frame[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+         "filter_only_shapes": per_frame(gram_filter),
+         "captured_frame": {name: {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                            for name, g in zip(("points", "lines"), gram_frame)}},
         {"name": "lk_pyramid", "route": "cuda",
          "source": "plviwo_tpu_torch/csrc/lk_pyramid.cu",
          "replaces": "plviwo_tpu/ops/lk_kernel.py:141",
@@ -589,6 +696,8 @@ def main() -> int:
          "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"]),
          "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": None,
+         "launches_by_path": {"images_in": img_launches["lk_pyramid"],
+                              "images_in_points_only": pts_launches["lk_pyramid"]},
          "captured_frame": {k: lk_frame[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     ]}))
     print(card)

@@ -4,14 +4,15 @@ One frame for B sequences at once: IMU propagation -> window
 marginalization -> clone augmentation -> point rows (triangulate, systems,
 gate/Gram kernel, k = 3) + line rows (two-plane triangulation, systems,
 gate/Gram kernel, k = 4) + wheel rows (preintegration, FEJ system, chi2
-gate) -> one summed Gram system -> one compression -> one EKF update.
+gate) + GPS rows (images-in frame only) -> one summed Gram system -> one
+compression -> one EKF update.
 
 All control flow is masked; nothing in the step reads a value back to the
 host, so metrics come back as (B,) tensors.  The gate always goes through
 `ops.msckf_kernel.gram_gate` (the CUDA kernel on the card, its plain
 version on the CPU); the JAX package's XLA gate path and its
-`use_pallas` switch are not ported.  Stereo, dynamic cloning and GPS rows
-are not ported yet.
+`use_pallas` switch are not ported.  Stereo and dynamic cloning are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from ..ops.chi2 import _TABLE as _CHI2_NP
 from ..ops.msckf_kernel import gram_gate
 from ..update import cam_helper
+from ..update import gps as gps_up
 from ..update import lines as line_up
 from ..update import wheel as wheel_up
 from . import ekf, propagator
@@ -185,6 +187,43 @@ def _wheel_rows(state: FilterState, slot0, slot1, wheel_t, wheel_m1, wheel_m2,
     chi = ekf.chi2(state.cov, Hw, rw, ones, mask)
     accept = (chi < float(_CHI2_NP[6]) * chi2_mult) & wheel_valid
     return Hw, rw, mask & accept[:, None], accept.to(torch.int32)
+
+
+def _gps_rows(state: FilterState, gps_t, gps_p, gps_valid, sigma_gps, chi2_mult):
+    """GPS slice: per fix a 3-row position system at the pose interpolated
+    between its bounding clones (the newest clone at or before the fix and
+    the oldest at or after it), whitened by sigma_gps and chi2-gated per fix.
+    The world frame is taken to be the ENU frame.
+
+    gps_t (B,Ng) f64, gps_p (B,Ng,3), gps_valid (B,Ng) bool.  Returns
+    (H (B,3Ng,D), r (B,3Ng), mask (B,3Ng), accepted (B,) int32)."""
+    lo: StateLayout = state.layout
+    B, Ng = gps_t.shape
+    ext_p = state.gps_p[:, 0] if lo.n_gps > 0 else state.p.new_zeros(B, 3)
+    cv, ct = state.clone_valid[:, None], state.clone_t[:, None]  # (B,1,C)
+    t = gps_t[..., None]
+    le, ge = cv & (ct <= t), cv & (ct >= t)
+    slot0 = torch.argmax(torch.where(le, ct, -torch.inf), dim=-1)  # (B,Ng)
+    slot1 = torch.argmin(torch.where(ge, ct, torch.inf), dim=-1)
+    covered = torch.any(le, dim=-1) & torch.any(ge, dim=-1)
+    ctv = torch.where(state.clone_valid, state.clone_t, torch.inf)
+    t0, t1 = torch.gather(ctv, 1, slot0), torch.gather(ctv, 1, slot1)
+    lam = torch.where(t1 > t0, (gps_t - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0)
+    H6, res = gps_up.gps_linear_system(state.clone_q, state.clone_p, state.clone_q_fej,
+                                       state.clone_p_fej, slot0, slot1, lam, ext_p, gps_p)
+    # the two 6-column blocks into D columns by one-hot products, summed
+    # (slot0 equals slot1 when a fix lands on a clone time)
+    ar6 = torch.arange(6, device=gps_t.device)
+    S0 = cam_helper.one_hot(lo.clone_off + 6 * slot0[..., None] + ar6, lo.dim, F64)
+    S1 = cam_helper.one_hot(lo.clone_off + 6 * slot1[..., None] + ar6, lo.dim, F64)
+    Hw = (H6[..., :6] @ S0 + H6[..., 6:] @ S1) / sigma_gps  # (B,Ng,3,D)
+    rw = res / sigma_gps
+    m = (gps_valid & covered)[..., None].expand(B, Ng, 3)
+    chi = ekf.chi2(state.cov[:, None], Hw, rw, torch.ones_like(rw), m)
+    accept = gps_valid & covered & (chi < float(_CHI2_NP[3]) * chi2_mult)
+    mask = accept[..., None].expand(B, Ng, 3).reshape(B, 3 * Ng)
+    return (Hw.reshape(B, 3 * Ng, lo.dim), rw.reshape(B, 3 * Ng), mask,
+            torch.sum(accept, dim=-1, dtype=torch.int32))
 
 
 def fused_step(state: FilterState, imu_t, imu_w, imu_a, t_new,

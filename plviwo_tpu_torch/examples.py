@@ -9,8 +9,8 @@ numpy (and the port's simulator) alone.
   wheel rows.  The same seeds give the same arrays as the JAX builders.
 - `seed_state`, `imu_window`, `wheel_window`: ports of the builders of
   tests/test_fused_frame.py:29-82; `noisy_batch`, `lk_pair` and
-  `frame_inputs` assemble B-sequence frame inputs on the card as bench.py's
-  images-in unit does.
+  `frame_inputs` assemble B-sequence frame inputs (with GPS fixes) on the
+  card as bench.py's images-in unit does.
 """
 
 from __future__ import annotations
@@ -156,12 +156,15 @@ def batch_args(args, B: int, device=CUDA, n_batched: int = 16):
 
 IMU_PAD = 32
 WHEEL_PAD = 16
+GPS_PAD = 4  # fixes per frame (bench.py)
 
 
 def seed_state(sim, layout: StateLayout, t0: float) -> dict:
     """Ground-truth-seeded filter state at t0 (the Initializer's set_state)
     as a dict of numpy arrays with the JAX FilterState's unbatched shapes;
-    `FilterState.from_numpy([d] * B, layout, device)` batches it."""
+    `FilterState.from_numpy([d] * B, layout, device)` batches it.  With a
+    GPS block in the layout, its antenna lever arm is the simulator's
+    (as bench.py sets it)."""
     c = sim.cfg
     st = make_state(layout, priors={"imu_th": 1e-3, "imu_p": 1e-5, "imu_v": 1e-2,
                                     "imu_bg": 1e-3, "imu_ba": 1e-2},
@@ -180,6 +183,8 @@ def seed_state(sim, layout: StateLayout, t0: float) -> dict:
     st["cam_k"][0] = c.intrinsics
     st["cam_q"][0] = c.cam_ext_q
     st["cam_p"][0] = c.cam_ext_p
+    if layout.n_gps > 0:
+        st["gps_p"][0] = c.gps_ext_p
     return st
 
 
@@ -232,20 +237,73 @@ def lk_pair(sim, B: int, n_pts: int, t: float, gen: torch.Generator, dt: float =
 
 
 def frame_inputs(sim, B: int, n_frames: int, gen: torch.Generator, t0: float = 1.0,
-                 dt: float = 0.1):
+                 dt: float = 0.1, gps_pad: int = GPS_PAD):
     """`fused_frame` inputs of n_frames frames at t0 + dt (i + 1) for B
     sequences on gen's device: per frame a dict with `t`, `img` (B,H,W)
     (`noisy_batch` noise), `imu` (t (B,32), w (B,32,3), a (B,32,3)),
-    `t_new` (B,) and `wheel` (t, m1, m2 (B,16)) — the same IMU and wheel
-    data for every sequence, as bench.py feeds them."""
+    `t_new` (B,), `wheel` (t, m1, m2 (B,16)) and, with gps_pad > 0, `gps`
+    (t (B,gps_pad), p (B,gps_pad,3), valid (B,gps_pad)): the fixes in
+    (t_prev, t], padded with the frame time.  The same IMU, wheel and GPS
+    data for every sequence, drawn from the simulator's generator in
+    bench.py's order: every GPS sample first, then per frame the image
+    and the wheel samples."""
     imu = sim.imu_stream()
+    fixes = [(float(t), sim.gps_sample(t)) for t in sim.gps_times()] if gps_pad else []
     frames, t_prev = [], t0
     for i in range(n_frames):
         t = t0 + dt * (i + 1)
+        img = noisy_batch(sim.render_frame(t), B, gen)
         win = imu_window(*imu, t_prev, t) + (np.full(1, t),) + wheel_window(sim, t_prev, t)
+        if gps_pad:
+            gt, gp, gv = np.full(gps_pad, t), np.zeros((gps_pad, 3)), np.zeros(gps_pad, bool)
+            for j, (ft, fp) in enumerate([f for f in fixes if t_prev < f[0] <= t][:gps_pad]):
+                gt[j], gp[j], gv[j] = ft, fp, True
+            win = win + (gt, gp, gv)
         per = [torch.as_tensor(a, device=gen.device).expand((B,) + a.shape).contiguous()
                for a in win]
-        frames.append(dict(t=t, img=noisy_batch(sim.render_frame(t), B, gen), imu=per[:3],
-                           t_new=per[3][:, 0], wheel=per[4:]))
+        frames.append(dict(t=t, img=img, imu=per[:3], t_new=per[3][:, 0], wheel=per[4:7]))
+        if gps_pad:
+            frames[-1]["gps"] = per[7:]
         t_prev = t
     return frames
+
+
+LOOP_PTS, LOOP_LINES, LOOP_OBS = 96, 16, 8  # closed_loop's point slots, line slots, history
+
+
+def closed_loop(sim, B: int, n_frames: int, gen: torch.Generator):
+    """The 60-frame closed loop of tests/test_fused_frame.py:113-162 for B
+    sequences on gen's device: points, lines and wheel (no GPS) from the
+    ground-truth seed at t = 1 s, 14 clones, LOOP_PTS point and LOOP_LINES
+    line slots of LOOP_OBS observations, float32 camera tensors as in the
+    bench, per-sequence pixel noise.
+    Returns per sequence (numpy (B,)): the position error after each frame
+    `errs` (n_frames, B), its `rmse` and `final`, and the totals
+    `accepted`, `lines_accepted` and `wheel_accepted`."""
+    from .core import frame
+    from .core.layout import StateLayout
+
+    dev = gen.device
+    c = sim.cfg
+    frames = frame_inputs(sim, B, n_frames, gen, gps_pad=0)
+    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
+    state = FilterState.from_numpy([seed_state(sim, layout, 1.0)] * B, layout, dev)
+    ts = frame.make_track_state(c.height, c.width, LOOP_PTS, LOOP_LINES, LOOP_OBS, batch=B,
+                                device=dev)
+    gravity = torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=dev)
+    sigmas = (c.sigma_w, c.sigma_a, c.sigma_wb, c.sigma_ab)
+    wheel_valid = torch.ones(B, dtype=torch.bool, device=dev)
+    errs, totals = [], {k: 0 for k in ("accepted", "lines_accepted", "wheel_accepted")}
+    for f in frames:
+        state, ts, m = frame.fused_frame(
+            state, ts, f["img"], *f["imu"], f["t_new"], *f["wheel"], wheel_valid, gravity,
+            sigmas, 1.5, 8.0, 2.0, (0.05, 0.05, 0.02), model=0, window_size=1.0,
+            cam_dtype=torch.float32, min_track=4)
+        p_gt = torch.as_tensor(sim.gt_pose(f["t"])[1], device=dev)
+        errs.append(torch.linalg.vector_norm(state.p - p_gt, dim=-1))
+        for k in totals:
+            totals[k] = totals[k] + m[k]
+    errs = torch.stack(errs).cpu().numpy()
+    out = {k: v.cpu().numpy() for k, v in totals.items()}
+    out.update(errs=errs, rmse=np.sqrt(np.mean(errs**2, axis=0)), final=errs[-1])
+    return out

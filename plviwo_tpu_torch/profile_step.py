@@ -5,8 +5,9 @@
 
 The filter step runs at the filter bench's width (22 clones, 40 point
 tracks x 20 obs, 16 line tracks, 32 IMU / 32 wheel samples); `--frame` runs
-`core.frame.fused_frame` at the images-in width (640 x 480, 128 slots x 8
-obs, 14 clones with wheel, the port's simulator, after 6 warm-up frames).
+`core.frame.fused_frame` as bench.py's images-in unit (640 x 480, 128
+point slots x 8 obs, 24 line slots, 14 clones with wheel and one GPS block,
+up to 4 GPS fixes a frame, the port's simulator, after 6 warm-up frames).
 It prints:
   - host syncs that torch reports during one step (sync debug mode);
   - the wall time of a step, and its device time from CUDA events;
@@ -23,6 +24,8 @@ import time
 import warnings
 
 import torch
+
+from .sim.simulator import SimConfig
 
 
 def _inputs(B, dev):
@@ -89,24 +92,24 @@ def _timer(out):
 
 
 FRAME_KW = dict(model=0, window_size=1.0, cam_dtype=torch.float32, min_track=4,
-                use_lines=False)
+                use_gps=True, sigma_gps=SimConfig.sigma_gps, gps_chi2_mult=8.0)
 FRAME_CONSTS = (1.5, 8.0, 2.0, (0.05, 0.05, 0.02))  # sigma_pix, chi2_mult, sigma_line, wheel noise
 
 
 def _frame_setup(B, n_frames, dev):
-    """Simulator frames and a GT-seeded (state, track state) at the
-    images-in width."""
+    """Simulator frames and a GT-seeded (state, track state) of bench.py's
+    images-in unit."""
     from .core import frame
     from .core.layout import StateLayout
     from .core.state import FilterState
     from .examples import frame_inputs, seed_state
-    from .sim.simulator import SimConfig, Simulator
+    from .sim.simulator import Simulator
 
     sim = Simulator(SimConfig(duration=6.0, n_landmarks=350, n_lines=40, seed=3))
     frames = frame_inputs(sim, B, n_frames, torch.Generator(device=dev).manual_seed(7))
-    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
+    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True, n_gps=1)
     state = FilterState.from_numpy([seed_state(sim, layout, 1.0)] * B, layout, dev)
-    ts = frame.make_track_state(480, 640, n_pts=128, max_obs=8, batch=B, device=dev)
+    ts = frame.make_track_state(480, 640, 128, 24, 8, batch=B, device=dev)
     c = sim.cfg
     consts = (torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=dev),
               (c.sigma_w, c.sigma_a, c.sigma_wb, c.sigma_ab)) + FRAME_CONSTS
@@ -114,9 +117,11 @@ def _frame_setup(B, n_frames, dev):
 
 
 def _frame_args(f, consts):
+    """(positional arguments, GPS keyword arguments) of one frame."""
     B = f["img"].shape[0]
+    gps = dict(zip(("gps_t", "gps_p", "gps_valid"), f["gps"]))
     return (f["img"], *f["imu"], f["t_new"], *f["wheel"],
-            torch.ones(B, dtype=torch.bool, device=f["img"].device), *consts)
+            torch.ones(B, dtype=torch.bool, device=f["img"].device), *consts), gps
 
 
 def _frame_stage_times(state, ts, f, consts):
@@ -124,13 +129,13 @@ def _frame_stage_times(state, ts, f, consts):
     front-end stages are timed alone and then `track_frame` whole."""
     from .core import ekf, frame, propagator, step
     from .core.state import newest_clone_slot
-    from .ops import cam, image, klt, lk_kernel
+    from .ops import cam, image, klt, line_detect, lk_kernel
     from .update.wheel import W3D_ANG
 
     out = {}
     timed = _timer(out)
-    gravity, sigmas, sigma_pix, chi2_mult, _, wheel_noise = consts
-    f32, N = torch.float32, ts.uv.shape[1]
+    gravity, sigmas, sigma_pix, chi2_mult, sigma_line, wheel_noise = consts
+    f32, N, Lm = torch.float32, ts.uv.shape[1], ts.lseg.shape[1]
     state = timed("propagate", lambda: propagator.propagate(
         state, *f["imu"], f["t_new"], gravity, sigmas))
 
@@ -146,17 +151,37 @@ def _frame_stage_times(state, ts, f, consts):
     uv, ok = timed("LK (kernel)", lambda: lk_kernel.pyramidal_lk(
         (ts.pyr0, ts.pyr1, ts.pyr2), pyr, ts.uv, ts.valid & ts.has_prev[:, None], 3, 7, 6))
     kb = state.cam_k[:, :1]
-    timed("undistort+RANSAC", lambda: klt.ransac_fundamental(
+    inl = timed("undistort+RANSAC", lambda: klt.ransac_fundamental(
         *cam.undistort(torch.cat([ts.uv, uv], 1).double(), kb, 0).split(N, dim=1), ok, ts.key,
         ts.counter))
-    timed("detect_grid", lambda: klt.detect_grid(pyr[0], uv, ok, 16, 12, N, min_px_dist=10.0))
-    ts, harvest = timed("track_frame (all front-end)", lambda: frame.track_frame(
+    # the point slots as track_frame hands them to the line block
+    ok = ok & torch.where(torch.sum(ok, dim=-1, keepdim=True) >= 12, inl, ok)
+    alive = ts.valid & ok & ts.has_prev[:, None]
+    uv_cur = torch.where(alive[..., None], uv, ts.uv)
+    det_uv, det_ok = timed("detect_grid", lambda: klt.detect_grid(
+        pyr[0], uv_cur, alive, 16, 12, N, min_px_dist=10.0))
+    take, filled = frame._fill_free_slots(~alive, det_ok)
+    uv_all = torch.where(filled[..., None], frame._take(det_uv, take), uv_cur)
+    valid_all = alive | filled
+    segs_h, _, cand_ok = timed("line detection", lambda: line_detect.detect_segments_runlen(
+        pyr[1]))
+    ls = timed("line NMS+attach+match", lambda: frame._line_slots(
+        ts, segs_h, cand_ok, uv_all, valid_all, alive))
+    lseg_n = cam.undistort(ls.lseg_all.reshape(-1, 2 * Lm, 2).double(), kb, 0).reshape(-1, Lm, 4)
+    timed("line histories", lambda: frame._line_histories(
+        ts, ls, lseg_n, uv_all, valid_all, f["t_new"], slot1))
+    ts, harvest, lharvest = timed("track_frame (all front-end)", lambda: frame.track_frame(
         ts, f["img"], state.cam_k[:, 0], f["t_new"], slot1))
     p_uv, p_uvn, p_slot, p_mask, p_t = harvest
     p_mask = frame._liveness(state, p_slot, p_t, p_mask)
     p_mask = p_mask & (torch.sum(p_mask, dim=-1, keepdim=True) >= 3)
+    l_uv, l_uvn, l_slot, l_mask, l_t = lharvest
+    l_mask = frame._liveness(state, l_slot, l_t, l_mask)
+    l_mask = l_mask & (torch.sum(l_mask, dim=-1, keepdim=True) >= 3)
     G1, c1, _ = timed("point rows (incl. kernel)", lambda: step._camera_msckf_rows(
         state, p_uv, p_uvn, p_slot, p_mask, sigma_pix, chi2_mult, 0, f32))
+    G2, c2, _ = timed("line rows (incl. kernel)", lambda: step._line_msckf_rows(
+        state, l_uv.double(), l_uvn.double(), l_slot, l_mask, sigma_line, chi2_mult, f32))
 
     def wheel():
         Hw, rw, mw, _ = step._wheel_rows(state, slot0, slot1, *f["wheel"],
@@ -166,8 +191,15 @@ def _frame_stage_times(state, ts, f, consts):
 
     Gw, cw = timed("wheel rows", wheel)
 
+    def gps():
+        Hg, rg, mg, _ = step._gps_rows(state, *f["gps"], FRAME_KW["sigma_gps"],
+                                       FRAME_KW["gps_chi2_mult"])
+        return step._rows_to_gram(Hg, rg, mg)
+
+    Gg, cg = timed("GPS rows", gps)
+
     def joint():
-        Hj, rj, mj = ekf.compress_from_gram(G1 + Gw, c1 + cw)
+        Hj, rj, mj = ekf.compress_from_gram(G1 + G2 + Gw + Gg, c1 + c2 + cw + cg)
         return ekf.update(state, Hj, rj, torch.ones_like(rj), mj)
 
     timed("compress+update", joint)
@@ -194,9 +226,8 @@ def main(argv=None) -> int:
         it = iter(frames)
 
         def step(s):
-            st, tr = s
-            f = next(it)
-            return fused_frame(st, tr, *_frame_args(f, consts), **FRAME_KW)[:2]
+            args, gps = _frame_args(next(it), consts)
+            return fused_frame(*s, *args, **gps, **FRAME_KW)[:2]
 
         s = (state, ts)
         for _ in range(n_warm):

@@ -9,9 +9,9 @@ It gives the chip smoke real frames, IMU and wheel data on a machine
 without JAX.
 
 Ported: `gt_pose`, `gt_kin`, `imu_stream`, `render_frame` of the left
-camera (with `line_frame` and `_draw_line`), `wheel_sample`.  Not ported:
-fiducial tags (`n_tags > 0` is refused), the right stereo camera,
-`cam_frame`, the time grids, GPS.
+camera (with `line_frame` and `_draw_line`), `wheel_sample`, `gps_times`
+and `gps_sample`.  Not ported: fiducial tags (`n_tags > 0` is refused), the
+right stereo camera, `cam_frame`, the camera and wheel time grids.
 
 Conventions match the filter: q_GtoI JPL, gravity g = [0,0,9.81],
 a_m = R_GtoI (a_G + g) + ba + n_a,  w_m = w_body + bg + n_g.
@@ -266,3 +266,17 @@ class Simulator:
         psi_r = (vx + wz * c.wheel_base / 2.0) / c.wheel_rr
         n = self.rng.normal(0, c.sigma_wheel, 2)
         return psi_l + n[0], psi_r + n[1]
+
+    def gps_times(self):
+        """Fix times at gps_hz, from 0.05 s after the start."""
+        c = self.cfg
+        n = int((self.t_end - self.t_start) * c.gps_hz)
+        return self.t_start + 0.05 + np.arange(n) / c.gps_hz
+
+    def gps_sample(self, t):
+        """ENU position of the GPS antenna at t (noisy); the world frame is
+        the ENU frame."""
+        c = self.cfg
+        kin = self.spline.imu_true(t)
+        p_gps = kin["p_IinG"] + kin["R_GtoI"].T @ np.asarray(c.gps_ext_p)
+        return p_gps + self.rng.normal(0, c.sigma_gps, 3)

@@ -65,6 +65,8 @@ def _gate_vec(M, chi2_mult, dev):
     # not a multiple of the pass-2 tile
     (3, 1, 8, 12, 40), (4, 1, 8, 12, 40),
     (3, 64, 128, 16, 124),  # the images-in frame: 128 slots x 8 obs, D = 124
+    # the images-in frame with lines and GPS (D = 132): points, lines
+    (3, 64, 128, 16, 132), (4, 64, 24, 16, 132),
     # F not a multiple of the features per block; one sequence; M - k > 32;
     # D = 162: 648-byte rows, 8-byte aligned on odd rows; D = 41: rows only
     # 4-byte aligned
@@ -272,8 +274,10 @@ def test_lk_kernel_rejects_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_frame_kernel_path_matches_plain_path(cuda_device, monkeypatch):
-    """Three images-in frames at B = 2: the kernel path launches each kernel
-    once per frame and matches the path with both plain versions."""
+    """Five images-in frames of points, lines, wheel and GPS at B = 2 (a GPS
+    fix between two clones in the fourth): the kernel path launches LK once
+    and gate/Gram twice (points, lines) per frame and matches the path with
+    both plain versions."""
     from plviwo_tpu_torch import examples
     from plviwo_tpu_torch.core import frame, step
     from plviwo_tpu_torch.core.layout import StateLayout
@@ -282,43 +286,39 @@ def test_frame_kernel_path_matches_plain_path(cuda_device, monkeypatch):
     from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
 
     sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3))
-    layout = StateLayout(n_clones=6, n_cams=1, use_wheel=True)
-    imu = sim.imu_stream()
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    frames, t_prev = [], 1.0
-    for i in range(3):
-        t = 1.0 + 0.1 * (i + 1)
-        win = (examples.imu_window(*imu, t_prev, t) + (np.array([t]),)
-               + examples.wheel_window(sim, t_prev, t))
-        frames.append((examples.noisy_batch(sim.render_frame(t), 2, gen),)
-                      + tuple(torch.as_tensor(np.stack([a, a]), device=cuda_device) for a in win))
-        t_prev = t
+    layout = StateLayout(n_clones=6, n_cams=1, use_wheel=True, n_gps=1)
+    frames = examples.frame_inputs(sim, 2, 5, torch.Generator(device=cuda_device).manual_seed(1),
+                                   t0=1.7)
     gravity = torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=cuda_device)
 
     def run():
-        st = FilterState.from_numpy([examples.seed_state(sim, layout, 1.0)] * 2, layout,
+        st = FilterState.from_numpy([examples.seed_state(sim, layout, 1.7)] * 2, layout,
                                     cuda_device)
-        ts = frame.make_track_state(480, 640, n_pts=32, max_obs=3, batch=2, device=cuda_device)
+        ts = frame.make_track_state(480, 640, 32, 8, 3, batch=2, device=cuda_device)
         out = []
-        for img, it, iw, ia, tn, wt, w1, w2 in frames:
+        for f in frames:
             st, ts, m = frame.fused_frame(
-                st, ts, img, it, iw, ia, tn[:, 0], wt, w1, w2,
+                st, ts, f["img"], *f["imu"], f["t_new"], *f["wheel"],
                 torch.ones(2, dtype=torch.bool, device=cuda_device), gravity,
                 (1.7e-4, 2.0e-3, 1.9e-5, 3.0e-3), 1.5, 8.0, 2.0, (0.05, 0.05, 0.02),
-                use_lines=False)
+                use_gps=True, gps_t=f["gps"][0], gps_p=f["gps"][1], gps_valid=f["gps"][2],
+                sigma_gps=sim.cfg.sigma_gps, gps_chi2_mult=8.0)
             out.append(m)
         return st, out
 
     before = (lk_kernel.lk_pyramid.launches, gram_gate.launches)
     s1, m1 = run()
     torch.cuda.synchronize()
-    assert (lk_kernel.lk_pyramid.launches, gram_gate.launches) == (before[0] + 3, before[1] + 3)
+    assert (lk_kernel.lk_pyramid.launches, gram_gate.launches) == (before[0] + 5, before[1] + 10)
     monkeypatch.setattr(frame.lk_kernel, "pyramidal_lk", klt.pyramidal_lk_conv)
     monkeypatch.setattr(step, "gram_gate", gram_gate_plain)
     s0, m0 = run()
     for a, b in zip(m1, m0):
-        for k in ("tracked", "harvested", "accepted", "wheel_accepted"):
+        for k in ("tracked", "harvested", "accepted", "wheel_accepted", "line_tracked",
+                  "line_harvested", "lines_accepted", "gps_accepted"):
             assert torch.equal(a[k], b[k]), k
     assert int(sum(m["tracked"].sum() for m in m1)) > 0
+    assert int(sum(m["line_tracked"].sum() for m in m1)) > 0
+    assert int(sum(m["gps_accepted"].sum() for m in m1)) > 0
     assert float((s1.p - s0.p).abs().max()) < 1e-5
     assert float((s1.cov - s0.cov).abs().max()) < 1e-4 * float(s0.cov.abs().max())
