@@ -35,7 +35,15 @@ Phases (any failure raises, so the exit code is non-zero):
   8. closed loop: 60 frames of points, lines and wheel at B = 4 (the
      configuration and gates of tests/test_fused_frame.py:113-162 with
      float32 camera tensors): every sequence's RMSE < 0.32 m, final error
-     < 0.45 m, accepted > 50 and wheel > 30.
+     < 0.45 m, accepted > 50 and wheel > 30;
+  9. live driver: tests/test_gps_fused.py's 130-frame scenario (points,
+     lines, wheel, GPS in a yawed and offset ENU frame) through the port's
+     `VioSystem` at B = 1 (96 point and 16 line slots x 12 obs, D = 120),
+     held to that test's gates and to one LK and two gate/Gram launches per
+     frame: frames/s, the frame latency's p50 and p90, the host time
+     outside the frame and the GPS init's wall time;
+  10. both kernels vs their plain versions on the live driver's own
+     arguments (B = 1, M = 24, D = 120), with times and bounds.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
 JAX.
@@ -43,6 +51,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -62,6 +71,10 @@ MAX_LINES, D_IMG = 24, 132
 N_WARM, N_TIMED = 6, 12
 # the closed loop (tests/test_fused_frame.py:113-162)
 B_LOOP, N_LOOP = 4, 60
+# the live driver (tests/test_gps_fused.py:109-190): one vehicle, B = 1
+LIVE_T0, LIVE_FRAMES, LIVE_YAW, LIVE_ENU_T = 1.0, 130, 0.4, (40.0, -20.0, 1.0)
+LIVE_PTS, LIVE_LINES, LIVE_OBS = 96, 20, 12  # run_sim's slots and fused_max_obs
+LIVE_KEEP = 10  # frames whose gate/Gram arguments are kept for the kernel checks
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -427,6 +440,37 @@ def images_in_inputs(dev):
     return sim, frame_inputs(sim, B_IMG, N_WARM + N_TIMED, gen)
 
 
+@contextlib.contextmanager
+def recording(capture, n_gram=2):
+    """Bind the frame's gate/Gram and LK entries to wrappers that record
+    their arguments: capture["gram_gate"] holds the last n_gram gate/Gram
+    calls (a frame makes two, points then lines), capture["lk"] the last
+    LK call's ten positional arguments."""
+    import inspect
+
+    from plviwo_tpu_torch.core import step
+    from plviwo_tpu_torch.ops import lk_kernel
+
+    gram, lk = step.gram_gate, lk_kernel.pyramidal_lk
+    lk_sig = inspect.signature(lk)
+
+    def recording_gram(*args):
+        capture["gram_gate"] = (capture.get("gram_gate", []) + [args])[-n_gram:]
+        return gram(*args)
+
+    def recording_lk(*args, **kwargs):
+        bound = lk_sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        capture["lk"] = tuple(bound.arguments.values())
+        return lk(*args, **kwargs)
+
+    step.gram_gate, lk_kernel.pyramidal_lk = recording_gram, recording_lk
+    try:
+        yield capture
+    finally:
+        step.gram_gate, lk_kernel.pyramidal_lk = gram, lk
+
+
 def run_images_in(sim, frames, dev, capture=None, lines_gps=True):
     """The 18 frames through `fused_frame` from the ground-truth seed: the
     bench's whole unit, or with lines_gps=False points and wheel only
@@ -435,33 +479,14 @@ def run_images_in(sim, frames, dev, capture=None, lines_gps=True):
     arguments of the last frame's two gate/Gram calls, points then lines,
     under "gram_gate" and those of its LK call, all ten positional, under
     "lk"."""
-    import inspect
-
     import torch
 
     from plviwo_tpu_torch import examples
-    from plviwo_tpu_torch.core import frame, step
-    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.core import frame
 
     if capture is not None:
-        gram, lk = step.gram_gate, lk_kernel.pyramidal_lk
-        lk_sig = inspect.signature(lk)
-
-        def recording_gram(*args):
-            capture["gram_gate"] = capture.get("gram_gate", [])[-1:] + [args]
-            return gram(*args)
-
-        def recording_lk(*args, **kwargs):
-            bound = lk_sig.bind(*args, **kwargs)
-            bound.apply_defaults()
-            capture["lk"] = tuple(bound.arguments.values())
-            return lk(*args, **kwargs)
-
-        step.gram_gate, lk_kernel.pyramidal_lk = recording_gram, recording_lk
-        try:
+        with recording(capture):
             return run_images_in(sim, frames, dev)
-        finally:
-            step.gram_gate, lk_kernel.pyramidal_lk = gram, lk
     from plviwo_tpu_torch.core.layout import StateLayout
     from plviwo_tpu_torch.core.state import FilterState
 
@@ -614,6 +639,116 @@ def phase_closed_loop(dev):
     print(f"closed loop: B={B_LOOP}, {N_LOOP} frames in {wall:.2f} s")
 
 
+def phase_live_driver(dev):
+    """The live driver at B = 1: tests/test_gps_fused.py's scenario (16 s,
+    seed 5, lines, W3D_ANG wheel, GPS in a frame yawed by 0.4 rad and offset
+    by (40, -20, 1) m; 130 frames at 10 Hz from a ground-truth seed at 1 s)
+    through the port's `VioSystem` on the card, held to that test's gates
+    (the 4-DoF init completed, >= 3 fused fixes, RMSE of the last 30 poses
+    in ENU < 1.0 m, covariance diagonal finite and > -1e-9) and to exactly
+    one LK and two gate/Gram launches per frame.  The sensor stream is drawn
+    before the run (`examples.live_events`), so the times hold no rendering.
+    Returns (launches, readings, the last LK and LIVE_KEEP frames'
+    gate/Gram arguments)."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=16.0, n_landmarks=350, n_lines=40, width=W_IMG,
+                              height=H_IMG, seed=5, sigma_gps=0.3))
+    c, s = np.cos(LIVE_YAW), np.sin(LIVE_YAW)
+    R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    t_enu = np.asarray(LIVE_ENU_T)
+    t0 = time.perf_counter()
+    events = examples.live_events(sim, LIVE_T0, LIVE_FRAMES, (R, t_enu))
+    stream_s = time.perf_counter() - t0
+    system = VioSystem(examples.live_options(EstimatorOptions(), gps=True), device=dev)
+    examples.live_calibrate(system, sim, LIVE_T0)
+    timing, init_frame, capture = [], None, {}
+    with recording(capture, n_gram=2 * LIVE_KEEP):
+        torch.cuda.synchronize()
+        lk_kernel.lk_pyramid.launches = 0
+        gram_gate.launches = 0
+        t0 = time.perf_counter()
+        for kind, args in events:
+            n = system.stats["updates"]
+            examples.feed(system, kind, args)
+            if system.stats["updates"] > n:
+                timing.append(system.frame_timing)
+                if init_frame is None and system.gps.initialized:
+                    init_frame = len(timing) - 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                    "msckf_gram_gate": gram_gate.launches}
+    n = system.stats["updates"]
+    errs = [np.linalg.norm(p - (R @ sim.gt_kin(t)["p_IinG"] + t_enu))
+            for t, _, p in system.traj[-30:]]
+    rmse = float(np.sqrt(np.mean(np.square(errs))))
+    d = system.state.cov[0].diagonal()
+    ok = (system.gps.initialized and system.stats["gps_fused"] >= 3 and rmse < 1.0
+          and bool(torch.isfinite(d).all()) and bool((d > -1e-9).all()))
+    lat = np.array([f["frame"] for f in timing])
+    host = np.array([f["host"] for f in timing])
+    out = dict(frames=n, fps=n / wall, p50_ms=float(np.percentile(lat, 50)),
+               p90_ms=float(np.percentile(lat, 90)), first_ms=float(lat[0]),
+               host_ms=float(host.mean()), gps_init_ms=float("nan") if init_frame is None
+               else timing[init_frame]["gps"], init_frame=init_frame, rmse=rmse,
+               D=system.layout.dim)
+    print(f"live driver (B=1, D={out['D']}, 640x480, 96 point / 16 line slots x 12 obs): "
+          f"stats {system.stats}, gps {system.gps.stats}; GPS init at frame {init_frame}; "
+          f"last-30 RMSE in ENU {rmse:.4f} m; launches {launches}")
+    print(f"live driver timing: {n} frames in {wall:.3f} s = {out['fps']:.2f} frames/s at B=1; "
+          f"frame latency p50 {out['p50_ms']:.3f} ms, p90 {out['p90_ms']:.3f} ms (first "
+          f"{out['first_ms']:.3f} ms); host time outside fused_frame {out['host_ms']:.3f} ms "
+          f"a frame; GPS init {out['gps_init_ms']:.3f} ms; sensor stream drawn in {stream_s:.2f} s")
+    if n != LIVE_FRAMES or launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n}:
+        raise AssertionError(f"live driver: {n} frames, launches {launches}; want "
+                             f"{LIVE_FRAMES} frames, one LK and two gate/Gram per frame")
+    if not ok:
+        raise AssertionError("live driver: missed the gates of tests/test_gps_fused.py "
+                             "(GPS initialized, gps_fused >= 3, last-30 RMSE < 1.0 m, "
+                             "covariance diagonal finite and > -1e-9)")
+    return launches, out, capture
+
+
+def phase_live_kernels(capture):
+    """Both kernels against their plain versions on the live driver's own
+    arguments (B = 1, M = 24): the LK call of the last frame, and the
+    gate/Gram calls (points k = 3, lines k = 4) of the newest kept frame in
+    which each call accepts some features and rejects others."""
+    from plviwo_tpu_torch.ops import cuda_lib
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate_plain
+
+    lib = cuda_lib.library()
+    calls = capture["gram_gate"]
+    M, D = calls[0][0].shape[2], calls[0][0].shape[3]
+    smem = {k: lib.msckf_gram_gate_smem_bytes(M, D, k) for k in (3, 4)}
+    if not all(0 < b <= cuda_lib.SMEM_LIMIT for b in smem.values()):
+        raise AssertionError(f"gate/Gram does not take M={M} D={D}: {smem}")
+    print(f"gate/Gram pass-1 shared memory at M={M}, D={D}: {smem[3]} B (k=3), {smem[4]} B (k=4)")
+
+    def mixed(args):
+        ok = gram_gate_plain(*args)[2]
+        return 0 < int(ok.sum()) < ok.numel()
+
+    back = next((j for j in range(len(calls) // 2)
+                 if all(mixed(a) for a in calls[len(calls) - 2 * j - 2:len(calls) - 2 * j])), None)
+    if back is None:
+        raise AssertionError("live driver: no kept frame whose gate/Gram calls both accept "
+                             "some features and reject others")
+    pair = calls[len(calls) - 2 * back - 2:len(calls) - 2 * back]
+    gram = [phase_gram(f"live driver frame (last - {back}), {what} " + "x".join(
+        str(n) for n in args[0].shape), args) for what, args in zip(("points", "lines"), pair)]
+    lk = phase_lk("live driver last frame", capture["lk"])
+    return gram, lk
+
+
 def main() -> int:
     import torch
 
@@ -648,6 +783,10 @@ def main() -> int:
     gram_img = [phase_gram(f"k={k} B={B_IMG} F={F} M={2 * MAX_OBS} D={D_IMG}",
                            gram_args(k, B_IMG, F, 2 * MAX_OBS, D_IMG, dev))
                 for k, F in ((3, N_PTS), (4, MAX_LINES))]
+    # the live driver's shapes without GPS (run_sim --images --lines --wheel: D = 116)
+    gram_drv = [phase_gram(f"k={k} B=1 F={F} M={2 * LIVE_OBS} D=116",
+                           gram_args(k, 1, F, 2 * LIVE_OBS, 116, dev))
+                for k, F in ((3, LIVE_PTS), (4, LIVE_LINES))]
     lk = phase_lk("synthetic", lk_args(dev))
 
     filter_launches, filter_fps = phase_filter_only(dev)
@@ -662,6 +801,10 @@ def main() -> int:
     print(f"frames/s: filter-only {filter_fps:.1f} at B={B}, images-in {img_fps:.1f} at "
           f"B={B_IMG} (points + wheel only {pts_fps:.1f}) on {card}")
     phase_closed_loop(dev)
+    live_launches, live, live_args = phase_live_driver(dev)
+    gram_live, lk_live = phase_live_kernels(live_args)
+    print(f"live driver at B=1 on {card}: {live['fps']:.2f} frames/s, frame latency p50 "
+          f"{live['p50_ms']:.3f} ms / p90 {live['p90_ms']:.3f} ms")
 
     # one frame's two calls (points k = 3, lines k = 4): times summed, the
     # bound of their bytes and operations together
@@ -672,12 +815,17 @@ def main() -> int:
         return out
 
     gram_img_sum = per_frame(gram_img)
+
+    def times(g):
+        return {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
     print(json.dumps({"kernels": [
         {"name": "msckf_gram_gate", "route": "cuda",
          "source": "plviwo_tpu_torch/csrc/msckf_gram_gate.cu",
          "replaces": "plviwo_tpu/ops/msckf_kernel.py:205",
          "launches": img_launches["msckf_gram_gate"],
-         "max_abs_err": max(g["max_abs_err"] for g in gram_filter + gram_img + gram_frame),
+         "max_abs_err": max(g["max_abs_err"] for g in
+                            gram_filter + gram_img + gram_frame + gram_live + gram_drv),
          "ms": gram_img_sum["ms"], "plain_ms": gram_img_sum["plain_ms"],
          "bound_ms": gram_img_sum["bound_ms"], "bound_by": gram_img_sum["bound_by"],
          "library_ms": None, "per": "images-in frame: points (k=3) + lines (k=4) calls",
@@ -685,20 +833,24 @@ def main() -> int:
                               for name, g in zip(("points", "lines"), gram_img)},
          "launches_by_path": {"images_in": img_launches["msckf_gram_gate"],
                               "images_in_points_only": pts_launches["msckf_gram_gate"],
-                              "filter_only": filter_launches},
+                              "filter_only": filter_launches,
+                              "live_driver_b1": live_launches["msckf_gram_gate"]},
+         "live_driver_b1": {name: times(g) for name, g in zip(("points", "lines"), gram_live)},
+         "driver_shapes_d116": {name: times(g) for name, g in zip(("points", "lines"), gram_drv)},
          "filter_only_shapes": per_frame(gram_filter),
-         "captured_frame": {name: {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-                            for name, g in zip(("points", "lines"), gram_frame)}},
+         "captured_frame": {name: times(g) for name, g in zip(("points", "lines"), gram_frame)}},
         {"name": "lk_pyramid", "route": "cuda",
          "source": "plviwo_tpu_torch/csrc/lk_pyramid.cu",
          "replaces": "plviwo_tpu/ops/lk_kernel.py:141",
          "launches": img_launches["lk_pyramid"],
-         "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"]),
+         "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"], lk_live["max_abs_err"]),
          "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": None,
          "launches_by_path": {"images_in": img_launches["lk_pyramid"],
-                              "images_in_points_only": pts_launches["lk_pyramid"]},
-         "captured_frame": {k: lk_frame[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+                              "images_in_points_only": pts_launches["lk_pyramid"],
+                              "live_driver_b1": live_launches["lk_pyramid"]},
+         "live_driver_b1": times(lk_live),
+         "captured_frame": times(lk_frame)}
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import lie
-from ..ops.linalg import chol_equilibrated, chol_unrolled, solve_psd
+from ..ops.linalg import chol_equilibrated, chol_unrolled, inv_small, solve_psd
 from .state import FilterState, free_clone_slot
 
 
@@ -160,3 +160,45 @@ def compress_from_gram(G, c):
     rc = torch.where(valid & torch.isfinite(rc), rc, 0.0)
     Hc = L.transpose(-1, -2) * valid[..., None, :].to(G.dtype)
     return Hc, rc, valid
+
+
+def delayed_init(cov, H_x, H_n, r, r_diag, target_start: int, target_dim: int):
+    """Initialize a new k-dof variable block from a linear system
+    r = H_x dx + H_n dn + n, n ~ N(0, diag(r_diag)), dn the new variable's
+    error (reference: StateHelper::initialize / initialize_invertible,
+    StateHelper.cpp:357-600): rotate the system by the complete QR of H_n so
+    its top k rows have an invertible H_n1, initialize the block from those,
+    and update the existing states with the remaining rows.
+
+    Batch-first, float64: cov (B,D,D), H_x (B,M,D), H_n (B,M,k), r and
+    r_diag (B,M) (isotropic: r_diag[:, 0] is taken for every row, as the
+    reference asserts).  Returns (new_cov, dx_full (B,D), dn (B,k), H_up,
+    r_up, mask_up): the correction of the existing states from the update
+    rows, the new variable's correction, and the residual system already
+    applied."""
+    k = target_dim
+    ts = target_start
+    Q, _ = torch.linalg.qr(H_n, mode="complete")
+    Qt = Q.transpose(-1, -2)
+    Hx2, Hn2, r2 = Qt @ H_x, Qt @ H_n, (Qt @ r[..., None])[..., 0]
+    Hx1, Hn1, r1 = Hx2[:, :k], Hn2[:, :k], r2[:, :k]
+    Hx_up, r_up = Hx2[:, k:], r2[:, k:]
+
+    Hn1_inv = inv_small(Hn1)
+    sigma = r_diag[:, :1]
+    PxHt = cov @ Hx1.transpose(-1, -2)  # (B,D,k)
+    eye = torch.eye(k, dtype=cov.dtype, device=cov.device)
+    S1 = Hx1 @ PxHt + sigma[..., None] * eye
+    P_nn = Hn1_inv @ S1 @ Hn1_inv.transpose(-1, -2)
+    P_xn = -PxHt @ Hn1_inv.transpose(-1, -2)
+    dn = (Hn1_inv @ r1[..., None])[..., 0]
+
+    new_cov = cov.clone()
+    new_cov[:, :, ts:ts + k] = P_xn
+    new_cov[:, ts:ts + k, :] = P_xn.transpose(-1, -2)
+    new_cov[:, ts:ts + k, ts:ts + k] = P_nn
+    new_cov = _sym(new_cov)
+
+    mask_up = torch.ones(r_up.shape, dtype=torch.bool, device=cov.device)
+    dx_full, new_cov = ekf_update(new_cov, Hx_up, r_up, sigma.expand(r_up.shape), mask_up)
+    return new_cov, dx_full, dn, Hx_up, r_up, mask_up

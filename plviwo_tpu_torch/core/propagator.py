@@ -5,7 +5,9 @@ noise Qd (Trawny eqs. 129-130).  As in the JAX version, the per-interval
 RK4 increments are composed by a log-depth quaternion prefix scan, and the
 (Phi, Qd) chain by the same binary-tree fold (so its f32 products
 associate identically).
-Padding entries (dt = 0) are identity steps.
+Padding entries (dt = 0) are identity steps.  `ImuBuffer` is the
+host-side sample ring the live driver (`core/system.py`) selects padded
+windows from, in numpy, a copy of the JAX package's.
 """
 
 from __future__ import annotations
@@ -270,3 +272,92 @@ def propagate(state: FilterState, imu_t, imu_w, imu_a, t_end, gravity, sigmas) -
         cov=propagate_cov(state.cov, Phi, Qd),
         time=t_end,
     )
+
+
+# ---------------------------------------------------------------------------
+# host-side IMU buffer (bookkeeping only; math stays on device)
+# ---------------------------------------------------------------------------
+
+class ImuBuffer:
+    """Host-side ring of IMU samples with boundary-interpolated selection.
+
+    Mirrors Propagator::feed_imu / select_imu_readings / interpolate_data
+    (Propagator.cpp:17-28, 92-152, 318-328) using numpy; produces fixed-size
+    padded stacks for `propagate_arrays`.
+    """
+
+    def __init__(self, max_window: int = 4000):
+        self.t = np.zeros(0)
+        self.w = np.zeros((0, 3))
+        self.a = np.zeros((0, 3))
+        self.max_window = max_window
+
+    def feed(self, t: float, w, a):
+        self.t = np.append(self.t, t)
+        self.w = np.vstack([self.w, np.asarray(w)[None]])
+        self.a = np.vstack([self.a, np.asarray(a)[None]])
+        if len(self.t) > self.max_window:
+            cut = len(self.t) - self.max_window
+            self.t, self.w, self.a = self.t[cut:], self.w[cut:], self.a[cut:]
+
+    def prune(self, t_min: float):
+        keep = self.t >= t_min
+        # keep one sample before t_min for boundary interpolation
+        first = int(np.argmax(keep)) if keep.any() else len(self.t)
+        first = max(first - 1, 0)
+        self.t, self.w, self.a = self.t[first:], self.w[first:], self.a[first:]
+
+    @property
+    def newest(self) -> float:
+        return float(self.t[-1]) if len(self.t) else -np.inf
+
+    @property
+    def oldest(self) -> float:
+        return float(self.t[0]) if len(self.t) else np.inf
+
+    def _interp(self, i, j, t):
+        lam = (t - self.t[i]) / (self.t[j] - self.t[i])
+        w = (1 - lam) * self.w[i] + lam * self.w[j]
+        a = (1 - lam) * self.a[i] + lam * self.a[j]
+        return w, a
+
+    def select(self, t0: float, t1: float, pad_to: int | None = None):
+        """Samples covering [t0, t1] with interpolated boundary entries.
+
+        Returns (t (N,), w (N,3), a (N,3)) or None if the request cannot be
+        satisfied.  If pad_to is given, the stack is right-padded by repeating
+        the final sample (dt = 0 entries are no-ops in the scan).
+        """
+        if len(self.t) < 2 or t1 <= t0 or self.t[0] > t0 or self.t[-1] < t1:
+            return None
+        mid = (self.t > t0) & (self.t < t1)
+        ts, ws, as_ = [t0], [], []
+        i0 = int(np.searchsorted(self.t, t0, side="right") - 1)
+        w0, a0 = self._interp(i0, i0 + 1, t0)
+        ws.append(w0)
+        as_.append(a0)
+        idx = np.nonzero(mid)[0]
+        for i in idx:
+            ts.append(self.t[i])
+            ws.append(self.w[i])
+            as_.append(self.a[i])
+        i1 = int(np.searchsorted(self.t, t1, side="right") - 1)
+        if self.t[i1] == t1:
+            w1, a1 = self.w[i1], self.a[i1]
+        else:
+            w1, a1 = self._interp(i1, i1 + 1, t1)
+        ts.append(t1)
+        ws.append(w1)
+        as_.append(a1)
+        t_arr = np.asarray(ts)
+        w_arr = np.asarray(ws)
+        a_arr = np.asarray(as_)
+        if pad_to is not None:
+            n = len(t_arr)
+            if n > pad_to:
+                return None  # caller must use a bigger pad size
+            reps = pad_to - n
+            t_arr = np.concatenate([t_arr, np.full(reps, t_arr[-1])])
+            w_arr = np.concatenate([w_arr, np.tile(w_arr[-1], (reps, 1))])
+            a_arr = np.concatenate([a_arr, np.tile(a_arr[-1], (reps, 1))])
+        return t_arr, w_arr, a_arr

@@ -307,3 +307,91 @@ def closed_loop(sim, B: int, n_frames: int, gen: torch.Generator):
     out = {k: v.cpu().numpy() for k, v in totals.items()}
     out.update(errs=errs, rmse=np.sqrt(np.mean(errs**2, axis=0)), final=errs[-1])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the live driver's scenarios (tests/test_feed_image.py, tests/test_gps_fused.py)
+# ---------------------------------------------------------------------------
+
+def live_options(opts, gps: bool = False):
+    """Set the options of tests/test_feed_image.py (points, 24 line slots,
+    wheel) or, with gps, of tests/test_gps_fused.py (16 line slots, GPS
+    sigma 0.3 m, 4-DoF init after 8 m) on an `EstimatorOptions` tree (the
+    port's or the JAX package's: the fields are the same).  Returns opts."""
+    opts.cam.n_pts = 96
+    opts.cam.max_lines = 16 if gps else 24
+    opts.cam.use_lines = True
+    opts.cam.sigma_pix = 1.5
+    opts.cam.sigma_pix_line = 2.5
+    opts.cam.chi2_mult = 8.0
+    opts.cam.min_track_length = 4
+    opts.wheel.enabled = True
+    opts.wheel.noise_w = 0.05
+    opts.wheel.noise_v = 0.05
+    opts.wheel.noise_p = 0.02
+    if gps:
+        opts.gps.enabled = True
+        opts.gps.noise = 0.3
+        opts.gps.chi2_mult = 10.0
+        opts.gps.init_distance = 8.0
+    return opts
+
+
+def live_calibrate(system, sim, t0: float):
+    """Install the simulator's camera, wheel and (with GPS) antenna
+    calibration into the port's VioSystem and seed it from ground truth at
+    t0, as the live-driver tests do."""
+    c = sim.cfg
+    system.set_calibration(np.asarray(c.intrinsics), np.asarray(c.cam_ext_q),
+                           np.asarray(c.cam_ext_p))
+    system.set_wheel_calibration(np.asarray(c.wheel_ext_q), np.asarray(c.wheel_ext_p),
+                                 [c.wheel_rl, c.wheel_rr, c.wheel_base])
+    if system.gps is not None:
+        system.set_gps_calibration(c.gps_ext_p)
+    q0, p0 = sim.gt_pose(t0)
+    i0 = min(int(np.searchsorted(sim.imu_t, t0)), len(sim.bg_true) - 1)
+    system.initialize_from(t0, np.asarray(q0), p0, sim.gt_kin(t0)["v_IinG"],
+                           sim.bg_true[i0], sim.ba_true[i0])
+
+
+def live_events(sim, t0: float, n_frames: int, enu=None):
+    """The sensor stream of the live-driver tests' loop, in their order:
+    frames at t0 + 0.1 (i + 1); per IMU sample the GPS fixes, wheel samples
+    and frames due by then, then the sample itself; it ends with the IMU
+    sample that covers the last frame.  With enu = (R, t) the simulator's
+    fixes after t0 arrive in an ENU frame p_E = R p + t, all drawn first,
+    as tests/test_gps_fused.py draws them.  Works with the port's simulator
+    and the JAX package's.  Returns [(kind, args)] with kind in "gps",
+    "wheel", "image", "imu": the arguments of VioSystem.feed_gps_enu,
+    feed_wheel, feed_image and feed_imu."""
+    imu_t, imu_w, imu_a = sim.imu_stream()
+    wheel_ts = sim.wheel_times()
+    cam_ts = [t0 + 0.1 * (i + 1) for i in range(n_frames)]
+    fixes = []
+    if enu is not None:
+        R, tr = enu
+        fixes = [(float(t), R @ np.asarray(sim.gps_sample(t)) + tr)
+                 for t in sim.gps_times() if t > t0]
+    events, gi, wi, ci = [], 0, 0, 0
+    for i in range(len(imu_t)):
+        t = imu_t[i]
+        while gi < len(fixes) and fixes[gi][0] <= t:
+            events.append(("gps", fixes[gi]))
+            gi += 1
+        while wi < len(wheel_ts) and wheel_ts[wi] <= t:
+            m1, m2 = sim.wheel_sample(wheel_ts[wi])
+            events.append(("wheel", (float(wheel_ts[wi]), float(m1), float(m2))))
+            wi += 1
+        while ci < len(cam_ts) and cam_ts[ci] <= t:
+            events.append(("image", (cam_ts[ci], np.asarray(sim.render_frame(cam_ts[ci])))))
+            ci += 1
+        events.append(("imu", (float(t), imu_w[i], imu_a[i])))
+        if ci >= len(cam_ts):
+            break
+    return events
+
+
+def feed(system, kind: str, args):
+    """Hand one `live_events` event to a VioSystem."""
+    {"gps": system.feed_gps_enu, "wheel": system.feed_wheel, "image": system.feed_image,
+     "imu": system.feed_imu}[kind](*args)

@@ -8,10 +8,10 @@ and noise; tests/test_torch_fused_frame.py holds the two to each other.
 It gives the chip smoke real frames, IMU and wheel data on a machine
 without JAX.
 
-Ported: `gt_pose`, `gt_kin`, `imu_stream`, `render_frame` of the left
-camera (with `line_frame` and `_draw_line`), `wheel_sample`, `gps_times`
-and `gps_sample`.  Not ported: fiducial tags (`n_tags > 0` is refused), the
-right stereo camera, `cam_frame`, the camera and wheel time grids.
+Ported: `gt_pose`, `gt_kin`, `imu_stream`, `cam_times`, `render_frame` of
+the left camera (with `line_frame` and `_draw_line`), `wheel_times`,
+`wheel_sample`, `gps_times` and `gps_sample`.  Not ported: fiducial tags
+(`n_tags > 0` is refused), the right stereo camera and `cam_frame`.
 
 Conventions match the filter: q_GtoI JPL, gravity g = [0,0,9.81],
 a_m = R_GtoI (a_G + g) + ba + n_a,  w_m = w_body + bg + n_g.
@@ -149,6 +149,12 @@ class Simulator:
         a_m = a_body + self.ba_true + self.rng.normal(0, c.sigma_a / np.sqrt(dt), a_body.shape)
         return self.imu_t.copy(), w_m, a_m
 
+    def cam_times(self):
+        """Frame times at cam_hz, from 0.1 s after the start."""
+        c = self.cfg
+        n = int((self.t_end - self.t_start - 0.2) * c.cam_hz)
+        return self.t_start + 0.1 + np.arange(n) / c.cam_hz
+
     def _project(self, p_C):
         k = torch.tensor(self.cfg.intrinsics, dtype=F64)
         return cam_ops.project(torch.as_tensor(p_C), k, cam_ops.RADTAN).numpy()
@@ -175,10 +181,12 @@ class Simulator:
         seg += self.rng.normal(0, c.sigma_pix_line, seg.shape)
         return ids.astype(np.int64), seg
 
-    def render_frame(self, t):
+    def render_frame(self, t, with_lines=True):
         """Render a synthetic grayscale image (H, W) float32 in [0, 1] of
         the (left) camera: Gaussian blobs at the landmarks, dark strokes
-        along the 3-D lines, over a ray-cast textured ground plane."""
+        along the 3-D lines (with_lines: their noisy endpoints draw from the
+        generator, as in the JAX package), over a ray-cast textured ground
+        plane."""
         c = self.cfg
         H, W = c.height, c.width
         if not hasattr(self, "_ground_tex"):
@@ -231,9 +239,10 @@ class Simulator:
             dx = (xs - u)[None, :]
             img[np.ix_(ys, xs)] += a * np.exp(-(dx**2 + dy**2) / (2 * 1.8**2))
 
-        _, segs = self.line_frame(t)
-        for seg in segs:
-            self._draw_line(img, seg, depth=0.35)
+        if with_lines:
+            _, segs = self.line_frame(t)
+            for seg in segs:
+                self._draw_line(img, seg, depth=0.35)
         return np.clip(img, 0.0, 1.0).astype(np.float32)
 
     @staticmethod
@@ -251,6 +260,12 @@ class Simulator:
                 img[iv, iu] -= depth
                 img[iv + 1, iu] -= depth * 0.5
                 img[iv, iu + 1] -= depth * 0.5
+
+    def wheel_times(self):
+        """Sample times at wheel_hz from the start."""
+        c = self.cfg
+        n = int((self.t_end - self.t_start) * c.wheel_hz)
+        return self.t_start + np.arange(n) / c.wheel_hz
 
     def wheel_sample(self, t):
         """(psi_left, psi_right) wheel angular rates at t (noisy)."""

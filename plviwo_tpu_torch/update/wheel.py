@@ -5,11 +5,14 @@ clones, with its noise covariance and intrinsic Jacobians, and the FEJ
 linear system against the two bounding clones.  The recursions are
 log-depth prefix scans and the 6x6 (Phi, Q) chain the JAX tree fold, as in
 the JAX version.  The 2D models and the time-offset calibration column are
-not ported yet.
+not ported yet.  `WheelBuffer` is the host-side sample buffer the live
+driver (`core/system.py`) selects padded windows from, in numpy, a copy of
+the JAX package's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.propagator import _blocks, _id_quat, _qdot, prefix_scan, quat_prefix, tree_fold
@@ -19,6 +22,10 @@ from .cam_helper import _mv, gather_slots, one_hot
 F64 = torch.float64
 
 W2D_ANG, W2D_LIN, W2D_CEN, W3D_ANG, W3D_LIN, W3D_CEN = range(6)
+TYPE_CODES = {
+    "Wheel2DAng": W2D_ANG, "Wheel2DLin": W2D_LIN, "Wheel2DCen": W2D_CEN,
+    "Wheel3DAng": W3D_ANG, "Wheel3DLin": W3D_LIN, "Wheel3DCen": W3D_CEN,
+}
 
 
 def _wv_from_meas(m1, m2, intr, type_code: int):
@@ -215,3 +222,61 @@ def linear_system_3d(clone_q, clone_p, clone_q_fej, clone_p_fej, slot0, slot1,
         H[:, 0:3, wheel_int_off:wheel_int_off + 3] = -dR_di
         H[:, 3:6, wheel_int_off:wheel_int_off + 3] = -dp_di
     return H, res
+
+
+class WheelBuffer:
+    """Host-side wheel measurement buffer with split/interpolated selection
+    (reference: select_wheel_data, UpdaterWheel.cpp:142-217)."""
+
+    def __init__(self):
+        self.t = np.zeros(0)
+        self.m1 = np.zeros(0)
+        self.m2 = np.zeros(0)
+
+    def feed(self, t, m1, m2):
+        self.t = np.append(self.t, t)
+        self.m1 = np.append(self.m1, m1)
+        self.m2 = np.append(self.m2, m2)
+
+    def prune(self, t_min):
+        keep = np.searchsorted(self.t, t_min, side="left")
+        keep = max(keep - 1, 0)
+        self.t, self.m1, self.m2 = self.t[keep:], self.m1[keep:], self.m2[keep:]
+
+    def _interp(self, i, j, t):
+        lam = (t - self.t[i]) / (self.t[j] - self.t[i])
+        return ((1 - lam) * self.m1[i] + lam * self.m1[j],
+                (1 - lam) * self.m2[i] + lam * self.m2[j])
+
+    def select(self, t0, t1, pad_to=None):
+        # coverage: a sample landing EXACTLY on t1 suffices (strict <, like
+        # ImuBuffer.select) — the end boundary is taken directly, not
+        # interpolated, when t[i1] == t1
+        if len(self.t) < 2 or self.t[0] > t0 or self.t[-1] < t1 or t1 <= t0:
+            return None
+        ts, m1s, m2s = [t0], [], []
+        i0 = int(np.searchsorted(self.t, t0, side="right") - 1)
+        if self.t[i0] == t0:
+            m1s.append(self.m1[i0]); m2s.append(self.m2[i0])
+        else:
+            a, b = self._interp(i0, i0 + 1, t0)
+            m1s.append(a); m2s.append(b)
+        mid = (self.t > t0) & (self.t < t1)
+        for i in np.nonzero(mid)[0]:
+            ts.append(self.t[i]); m1s.append(self.m1[i]); m2s.append(self.m2[i])
+        i1 = int(np.searchsorted(self.t, t1, side="right") - 1)
+        if self.t[i1] == t1:
+            a, b = self.m1[i1], self.m2[i1]
+        else:
+            a, b = self._interp(i1, i1 + 1, t1)
+        ts.append(t1); m1s.append(a); m2s.append(b)
+        t_arr, m1_arr, m2_arr = np.asarray(ts), np.asarray(m1s), np.asarray(m2s)
+        if pad_to is not None:
+            n = len(t_arr)
+            if n > pad_to:
+                return None
+            reps = pad_to - n
+            t_arr = np.concatenate([t_arr, np.full(reps, t_arr[-1])])
+            m1_arr = np.concatenate([m1_arr, np.full(reps, m1_arr[-1])])
+            m2_arr = np.concatenate([m2_arr, np.full(reps, m2_arr[-1])])
+        return t_arr, m1_arr, m2_arr

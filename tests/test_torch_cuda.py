@@ -67,6 +67,9 @@ def _gate_vec(M, chi2_mult, dev):
     (3, 64, 128, 16, 124),  # the images-in frame: 128 slots x 8 obs, D = 124
     # the images-in frame with lines and GPS (D = 132): points, lines
     (3, 64, 128, 16, 132), (4, 64, 24, 16, 132),
+    # the live driver, one vehicle: 96 point and 20 / 16 line slots x 12 obs
+    # (M = 24), D = 116 without GPS (run_sim's default) and 120 with it
+    (3, 1, 96, 24, 116), (4, 1, 20, 24, 116), (3, 1, 96, 24, 120), (4, 1, 16, 24, 120),
     # F not a multiple of the features per block; one sequence; M - k > 32;
     # D = 162: 648-byte rows, 8-byte aligned on odd rows; D = 41: rows only
     # 4-byte aligned
@@ -197,13 +200,15 @@ def _nan_empty(empty):
     return filled
 
 
-# case: (B, n_pts, levels, half, variant).  The main path's size and a small
-# one; one and two levels; a 7 x 7 window; B * N not a multiple of the
-# features per block; features within a few pixels of the border (the patch
-# origins clip); the last sequence's images flat (det = 0: no step, not
-# ok); a third of the features invalid.
+# case: (B, n_pts, levels, half, variant).  The main path's size, the live
+# driver's (one vehicle, 96 slots) and a small one; one and two levels; a
+# 7 x 7 window; B * N not a multiple of the features per block; features
+# within a few pixels of the border (the patch origins clip); the last
+# sequence's images flat (det = 0: no step, not ok); a third of the
+# features invalid.
 LK_CASES = {
-    "main-path": (64, 128, 3, 7, None), "small": (2, 48, 3, 7, None),
+    "main-path": (64, 128, 3, 7, None), "live-driver": (1, 96, 3, 7, None),
+    "small": (2, 48, 3, 7, None),
     "levels-1": (2, 48, 1, 7, None), "levels-2": (2, 48, 2, 7, None),
     "half-3": (2, 48, 3, 3, None), "ragged-3x37": (3, 37, 3, 7, None),
     "border": (2, 48, 3, 7, "border"), "flat": (3, 48, 3, 7, "flat"),
