@@ -43,7 +43,27 @@ Phases (any failure raises, so the exit code is non-zero):
      frame: frames/s, the frame latency's p50 and p90, the host time
      outside the frame and the GPS init's wall time;
   10. both kernels vs their plain versions on the live driver's own
-     arguments (B = 1, M = 24, D = 120), with times and bounds.
+     arguments (B = 1, M = 24, D = 120), with times and bounds;
+  11. stereo images-in: phase 6 with a right image per sequence and two
+     cameras (D = 147, point rows M = 32): two LK launches (temporal, L->R)
+     and two gate/Gram launches per frame, >= 50% of the tracked slots
+     associated in the right image, phase 6's gates and plain-LK check;
+  12. dynamic images-in: phase 6 (D = 132) with sequence b cloning on
+     frames where (frame + b) is even and clone-to-clone wheel windows: one
+     LK and two gate/Gram launches per frame (points on interpolated
+     poses), the kernel path equal to the plain path, every sequence's
+     RMSE < 0.5 m;
+  13. live driver, dynamic cloning: tests/test_dynamic_fused.py's 90
+     frames through `VioSystem` at B = 1, held to that test's gates (NEES
+     included), one LK and two gate/Gram launches per frame;
+  14. live driver, stereo: tests/test_stereo_fused.py's 60 frames, stereo
+     and mono, held to that test's gates; two LK and one gate/Gram launch
+     per stereo frame;
+  15. both kernels vs their plain versions on the new paths' own
+     arguments: the stereo frame's point call (M = 32, D = 147) and L->R LK
+     call, the dynamic frame's and the dynamic driver's interpolated rows,
+     the stereo driver's point call (M = 48, D = 127).
+Synthetic gate/Gram checks also run at the stereo shapes.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
 JAX.
@@ -75,6 +95,8 @@ B_LOOP, N_LOOP = 4, 60
 LIVE_T0, LIVE_FRAMES, LIVE_YAW, LIVE_ENU_T = 1.0, 130, 0.4, (40.0, -20.0, 1.0)
 LIVE_PTS, LIVE_LINES, LIVE_OBS = 96, 20, 12  # run_sim's slots and fused_max_obs
 LIVE_KEEP = 10  # frames whose gate/Gram arguments are kept for the kernel checks
+# tests/test_dynamic_fused.py's and tests/test_stereo_fused.py's frames
+DYN_FRAMES, STEREO_FRAMES = 90, 60
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -329,6 +351,17 @@ def ptxas_report(log, kernel):
     return f"{lines[props + 1]}; {regs.split(':', 1)[-1].strip()}"
 
 
+def gram_ptxas(log):
+    """`-Xptxas -v` of every gate/Gram entry function (pass 1 per
+    `lane_cols` instantiation, pass 2): name, stack and spills, registers.
+    Reported, not gated: the kernel's registers are tuned per
+    instantiation."""
+    names = [line.split("'")[1] for line in log.splitlines()
+             if "Compiling entry function" in line
+             and any(k in line for k in ("gate_project", "gram"))]
+    return [f"{name}: {ptxas_report(log, name)}" for name in dict.fromkeys(names)]
+
+
 def lk_spills(log):
     """`ptxas_report` of the LK kernel; raises unless it reports no spill
     stores and no spill loads."""
@@ -471,14 +504,23 @@ def recording(capture, n_gram=2):
         step.gram_gate, lk_kernel.pyramidal_lk = gram, lk
 
 
-def run_images_in(sim, frames, dev, capture=None, lines_gps=True):
+def do_clone(b, i):
+    """The dynamic images-in phase's clone pattern: sequence b clones on
+    frames where (frame + b) is even."""
+    return (i + b) % 2 == 0
+
+
+def run_images_in(sim, frames, dev, capture=None, lines_gps=True, mode=None):
     """The 18 frames through `fused_frame` from the ground-truth seed: the
     bench's whole unit, or with lines_gps=False points and wheel only
-    (D = 124).  Returns (final state, per-frame metrics, tracked after the
-    warm-up, frames/s of the timed frames).  A dict `capture` receives the
-    arguments of the last frame's two gate/Gram calls, points then lines,
-    under "gram_gate" and those of its LK call, all ten positional, under
-    "lk"."""
+    (D = 124); mode "stereo" adds the right images (two cameras, D = 147),
+    mode "dynamic" clones per `do_clone` with the frames' clone-to-clone
+    wheel windows (`wheel_dyn`).  Returns (final state, per-frame metrics
+    (with "err", |p - p_gt| per sequence, in dynamic mode), tracked after
+    the warm-up, frames/s of the timed frames, final TrackState).  A dict
+    `capture` receives the arguments of the last frame's two gate/Gram
+    calls, points then lines, under "gram_gate" and those of its last LK
+    call (stereo: the L->R one), all ten positional, under "lk"."""
     import torch
 
     from plviwo_tpu_torch import examples
@@ -486,12 +528,13 @@ def run_images_in(sim, frames, dev, capture=None, lines_gps=True):
 
     if capture is not None:
         with recording(capture):
-            return run_images_in(sim, frames, dev)
+            return run_images_in(sim, frames, dev, mode=mode)
     from plviwo_tpu_torch.core.layout import StateLayout
     from plviwo_tpu_torch.core.state import FilterState
 
     c = sim.cfg
-    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True, n_gps=int(lines_gps))
+    layout = StateLayout(n_clones=14, n_cams=2 if mode == "stereo" else 1, use_wheel=True,
+                         n_gps=int(lines_gps))
     state = FilterState.from_numpy([examples.seed_state(sim, layout, 1.0)] * B_IMG, layout, dev)
     ts = frame.make_track_state(H_IMG, W_IMG, N_PTS, MAX_LINES, MAX_OBS, 0, batch=B_IMG,
                                 device=dev)
@@ -508,14 +551,24 @@ def run_images_in(sim, frames, dev, capture=None, lines_gps=True):
         if lines_gps:
             kw = dict(use_gps=True, gps_t=f["gps"][0], gps_p=f["gps"][1], gps_valid=f["gps"][2],
                       sigma_gps=c.sigma_gps, gps_chi2_mult=8.0)
+        wheel = f["wheel"]
+        if mode == "stereo":
+            kw.update(use_stereo=True, img_r=f["img_r"])
+        elif mode == "dynamic":
+            kw.update(use_dynamic=True, do_clone=torch.tensor(
+                [do_clone(b, i) for b in range(B_IMG)], device=dev))
+            wheel = f["wheel_dyn"]
         state, ts, m = frame.fused_frame(
-            state, ts, f["img"], *f["imu"], f["t_new"], *f["wheel"], wheel_valid, gravity,
+            state, ts, f["img"], *f["imu"], f["t_new"], *wheel, wheel_valid, gravity,
             sigmas, 1.5, 8.0, 2.0, (0.05, 0.05, 0.02), model=0, window_size=1.0,
             cam_dtype=torch.float32, min_track=4, grid_x=GRID[0], grid_y=GRID[1], **kw)
+        if mode == "dynamic":
+            p_gt = torch.as_tensor(sim.gt_pose(f["t"])[1], device=dev)
+            m = dict(m, err=torch.linalg.vector_norm(state.p - p_gt, dim=-1))
         metrics.append(m)
     torch.cuda.synchronize()
     fps = B_IMG * N_TIMED / (time.perf_counter() - t_start)
-    return state, metrics, tracked_warm, fps
+    return state, metrics, tracked_warm, fps, ts
 
 
 TIMED = ("accepted", "lines_accepted", "wheel_accepted", "gps_accepted")
@@ -545,7 +598,7 @@ def phase_images_in_points(sim, frames, dev):
     n = len(frames)
     lk_kernel.lk_pyramid.launches = 0
     gram_gate.launches = 0
-    state, metrics, tracked_warm, fps = run_images_in(sim, frames, dev, lines_gps=False)
+    state, metrics, tracked_warm, fps, _ = run_images_in(sim, frames, dev, lines_gps=False)
     launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
                 "msckf_gram_gate": gram_gate.launches}
     if launches != {"lk_pyramid": n, "msckf_gram_gate": n}:
@@ -574,7 +627,7 @@ def phase_images_in(sim, frames, dev):
     captured = {}
     lk_kernel.lk_pyramid.launches = 0
     gram_gate.launches = 0
-    state, metrics, tracked_warm, fps = run_images_in(sim, frames, dev, captured)
+    state, metrics, tracked_warm, fps, _ = run_images_in(sim, frames, dev, captured)
     launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
                 "msckf_gram_gate": gram_gate.launches}
     if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n}:
@@ -598,7 +651,7 @@ def phase_images_in(sim, frames, dev):
     lk = lk_kernel.pyramidal_lk
     lk_kernel.pyramidal_lk = klt.pyramidal_lk_conv
     try:
-        _, metrics0, _, fps0 = run_images_in(sim, frames, dev)
+        _, metrics0, _, fps0, _ = run_images_in(sim, frames, dev)
     finally:
         lk_kernel.pyramidal_lk = lk
     tot0 = totals(metrics0)
@@ -749,9 +802,331 @@ def phase_live_kernels(capture):
     return gram, lk
 
 
+def images_in_stereo_inputs(dev):
+    """The images-in phase's 18 frames with a right image per sequence
+    (the same world; the right camera rendered after the left)."""
+    import torch
+
+    from plviwo_tpu_torch.examples import frame_inputs
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=6.0, n_landmarks=350, n_lines=40, seed=3,
+                              width=W_IMG, height=H_IMG))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return sim, frame_inputs(sim, B_IMG, N_WARM + N_TIMED, gen, stereo=True)
+
+
+def kernel_totals(metrics):
+    """The timed frames' accepted totals and the final tracked count."""
+    timed = metrics[N_WARM:]
+    out = {k: int(sum(int(m[k].sum()) for m in timed)) for k in TIMED + ("line_tracked",)}
+    out["tracked_final"] = int(metrics[-1]["tracked"].sum())
+    return out
+
+
+def same_counts(tot, tot0):
+    """Tracked count equal and accepted totals within 1% (the images-in
+    phase's bound between its kernel and plain paths)."""
+    return tot0["tracked_final"] == tot["tracked_final"] and all(
+        abs(tot0[k] - tot[k]) <= 0.01 * tot[k] for k in TIMED)
+
+
+def phase_images_in_stereo(dev):
+    """Stereo images-in at the bench's width: the bench's whole unit with a
+    right image per sequence and two cameras (D = 147; point rows M = 4 O
+    = 32): exactly two LK launches (temporal, L->R) and two gate/Gram
+    launches per frame; right observations associated for >= 50% of the
+    valid slots (tests/test_stereo_fused.py's bound; also printed: the
+    share of the slots tracked into the last frame, which the L->R pass
+    runs on), accepted point, line, wheel and GPS rows, every sequence
+    within 0.45 m; the same frames through the plain LK give the same
+    tracked count and accepted totals within 1%."""
+    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    sim, frames = images_in_stereo_inputs(dev)
+    n = len(frames)
+    captured = {}
+    lk_kernel.lk_pyramid.launches = 0
+    gram_gate.launches = 0
+    state, metrics, tracked_warm, fps, ts = run_images_in(sim, frames, dev, captured, mode="stereo")
+    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                "msckf_gram_gate": gram_gate.launches}
+    if launches != {"lk_pyramid": 2 * n, "msckf_gram_gate": 2 * n}:
+        raise AssertionError(f"stereo images-in: {launches} kernel launches in {n} frames, want "
+                             "two LK and two gate/Gram per frame")
+    tot = kernel_totals(metrics)
+    # tests/test_stereo_fused.py counts the valid slots, fresh detections
+    # (no right observation yet) included; the slots tracked into the last
+    # frame are the L->R pass's own input mask
+    valid, tracked = int(ts.valid.sum()), int(captured["lk"][3].sum())
+    assoc = int(ts.rvalid.sum())
+    if not (tracked_warm > 0 and min(tot.values()) > 0 and assoc >= 0.5 * valid
+            and state.layout.dim == 147):
+        raise AssertionError(f"stereo images-in: tracked after warm-up {tracked_warm}, {tot}, "
+                             f"right associated {assoc} of {valid} valid slots, D = "
+                             f"{state.layout.dim}")
+    err = check_near_truth(sim, frames, state, dev, "stereo images-in")
+    lk = lk_kernel.pyramidal_lk
+    lk_kernel.pyramidal_lk = klt.pyramidal_lk_conv
+    try:
+        _, metrics0, _, fps0, _ = run_images_in(sim, frames, dev, mode="stereo")
+    finally:
+        lk_kernel.pyramidal_lk = lk
+    tot0 = kernel_totals(metrics0)
+    if not same_counts(tot, tot0):
+        raise AssertionError(f"stereo images-in: kernel LK {tot} vs plain LK {tot0}")
+    print(f"stereo images-in path: B={B_IMG} {W_IMG}x{H_IMG} D={state.layout.dim}: tracked after "
+          f"warm-up {tracked_warm}, timed {tot} (plain LK {tot0}); right associated {assoc} of "
+          f"{valid} valid slots ({assoc / valid:.3f}; of the {tracked} slots tracked into the "
+          f"last frame {assoc / tracked:.3f}); final |p - p_gt| max {float(err.max()):.4f} "
+          f"m; launches {launches}; {fps:.1f} frames/s (plain LK {fps0:.1f})")
+    return launches, fps, captured
+
+
+def phase_images_in_dynamic(sim, frames, dev):
+    """Dynamic cloning at the images-in width: the bench's whole unit (D =
+    132) with sequence b cloning on frames where (frame + b) is even and
+    clone-to-clone wheel windows: one LK and two gate/Gram launches per
+    frame (the point call on interpolated-pose rows); the kernel path
+    equals the plain path (both plain versions: tracked count equal,
+    accepted totals within 1%) and every sequence's position RMSE over the
+    18 frames is under tests/test_dynamic_fused.py's 0.5 m."""
+    import torch
+
+    from plviwo_tpu_torch.core import step
+    from plviwo_tpu_torch.examples import wheel_window
+    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate, gram_gate_plain
+
+    n = len(frames)
+    t_clone = [1.0, 1.0]  # last clone of the even and odd sequences
+    for i, f in enumerate(frames):
+        win = [wheel_window(sim, t_clone[j], f["t"]) for j in (0, 1)]
+        f["wheel_dyn"] = [torch.as_tensor(np.stack([win[b % 2][k] for b in range(B_IMG)]),
+                                          device=dev) for k in range(3)]
+        for j in (0, 1):
+            if do_clone(j, i):
+                t_clone[j] = f["t"]
+    captured = {}
+    lk_kernel.lk_pyramid.launches = 0
+    gram_gate.launches = 0
+    state, metrics, tracked_warm, fps, _ = run_images_in(sim, frames, dev, captured,
+                                                         mode="dynamic")
+    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                "msckf_gram_gate": gram_gate.launches}
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n}:
+        raise AssertionError(f"dynamic images-in: {launches} kernel launches in {n} frames, want "
+                             "one LK and two gate/Gram per frame")
+    tot = kernel_totals(metrics)
+    rmse = torch.sqrt(torch.mean(torch.stack([m["err"] for m in metrics]) ** 2, dim=0))
+    clones = int(state.clone_valid.sum())
+    if not (tracked_warm > 0 and tot["accepted"] > 0 and tot["wheel_accepted"] > 0
+            and float(rmse.max()) < 0.5 and bool(torch.isfinite(state.cov).all())):
+        raise AssertionError(f"dynamic images-in: tracked after warm-up {tracked_warm}, {tot}, "
+                             f"RMSE up to {float(rmse.max()):.3f} m")
+    lk, gram = lk_kernel.pyramidal_lk, step.gram_gate
+    lk_kernel.pyramidal_lk, step.gram_gate = klt.pyramidal_lk_conv, gram_gate_plain
+    try:
+        state0, metrics0, _, fps0, _ = run_images_in(sim, frames, dev, mode="dynamic")
+    finally:
+        lk_kernel.pyramidal_lk, step.gram_gate = lk, gram
+    tot0 = kernel_totals(metrics0)
+    if not same_counts(tot, tot0):
+        raise AssertionError(f"dynamic images-in: kernel path {tot} vs plain path {tot0}")
+    print(f"dynamic images-in path: B={B_IMG} D={state.layout.dim}, sequence b clones where "
+          f"(frame + b) is even: tracked after warm-up {tracked_warm}, timed {tot} (plain path "
+          f"{tot0}); clones in the ring {clones}; RMSE per sequence max {float(rmse.max()):.4f} m, "
+          f"mean {float(rmse.mean()):.4f} m; |p - p_plain| max "
+          f"{float((state.p - state0.p).abs().max()):.3e} m; launches {launches}; {fps:.1f} "
+          f"frames/s (plain path {fps0:.1f})")
+    return launches, fps, captured
+
+
+def drive_live(system, events, keep=LIVE_KEEP, n_gram=2, per_frame=None):
+    """Feed an event stream to a VioSystem on the card, counting launches
+    from zero and keeping the last `keep` frames' gate/Gram arguments
+    (n_gram calls a frame) and the last LK call; per_frame(system) runs
+    after each frame.  Returns (launches, frame timings, wall s, capture)."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    timing, capture = [], {}
+    with recording(capture, n_gram=n_gram * keep):
+        torch.cuda.synchronize()
+        lk_kernel.lk_pyramid.launches = 0
+        gram_gate.launches = 0
+        t0 = time.perf_counter()
+        for kind, args in events:
+            n = system.stats["updates"]
+            examples.feed(system, kind, args)
+            if system.stats["updates"] > n:
+                timing.append(system.frame_timing)
+                if per_frame is not None:
+                    per_frame(system)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                    "msckf_gram_gate": gram_gate.launches}
+    return launches, timing, wall, capture
+
+
+def latency(timing):
+    lat = np.array([f["frame"] for f in timing])
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 90))
+
+
+def phase_live_dynamic(dev):
+    """The live driver with dynamic cloning: tests/test_dynamic_fused.py's
+    90-frame scenario (12 s, seed 6, lines, wheel, clone rate capped at
+    10 Hz) through the port's VioSystem at B = 1, held to that test's gates
+    (frames >= 80, clones < frames, cam_accept > 20, wheel_accept > clones
+    // 3, RMSE < 0.5 m, p/o/v NEES means after frame 10 in (0.15, 6.0)) and
+    to one LK and two gate/Gram launches per frame."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.ops import lie
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=12.0, n_landmarks=350, n_lines=40, width=W_IMG,
+                              height=H_IMG, seed=6))
+    events = examples.live_events(sim, LIVE_T0, DYN_FRAMES)
+    system = VioSystem(examples.dynamic_options(EstimatorOptions()), device=dev)
+    examples.live_calibrate(system, sim, LIVE_T0)
+    nees = []
+
+    def record_nees(s):
+        st, kin = s.state, sim.gt_kin(s._time)
+        d = np.sqrt(np.maximum(st.cov[0].diagonal()[:15].cpu().numpy(), 1e-18))
+        dR = lie.quat_2_rot(st.q[0]).cpu().numpy() @ np.asarray(kin["R_GtoI"]).T
+        o = lie.log_so3(torch.as_tensor(dR)).numpy()
+        nees.append([np.sum(((st.p[0].cpu().numpy() - kin["p_IinG"]) / d[3:6]) ** 2),
+                     np.sum((o / d[0:3]) ** 2),
+                     np.sum(((st.v[0].cpu().numpy() - kin["v_IinG"]) / d[6:9]) ** 2)])
+
+    launches, timing, wall, capture = drive_live(system, events, per_frame=record_nees)
+    n, clones = system.stats["updates"], system.stats["clones"]
+    errs = [np.linalg.norm(p - sim.gt_pose(t)[1]) for t, _, p in system.traj]
+    rmse = float(np.sqrt(np.mean(np.square(errs))))
+    means = np.mean(np.array(nees[10:]), axis=0)
+    d = system.state.cov[0].diagonal()
+    p50, p90 = latency(timing)
+    print(f"live driver, dynamic cloning (B=1, D={system.layout.dim}): stats {system.stats}; "
+          f"clones/frames {clones}/{n}; RMSE {rmse:.4f} m; NEES means p/o/v "
+          f"{means[0]:.3f}/{means[1]:.3f}/{means[2]:.3f}; launches {launches}; frame latency p50 "
+          f"{p50:.3f} ms, p90 {p90:.3f} ms; {n / wall:.2f} frames/s")
+    ok = (n >= 80 and clones < n and system.stats["cam_accept"] > 20
+          and system.stats["wheel_accept"] > clones // 3 and rmse < 0.5 and len(nees[10:]) > 40
+          and bool(((means > 0.15) & (means < 6.0)).all()) and bool(torch.isfinite(d).all())
+          and bool((d > -1e-9).all()))
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n} or not ok:
+        raise AssertionError("live driver, dynamic cloning: missed the gates of "
+                             "tests/test_dynamic_fused.py or one LK and two gate/Gram launches "
+                             "a frame")
+    return launches, dict(p50_ms=p50, p90_ms=p90, fps=n / wall), capture
+
+
+def phase_live_stereo(dev):
+    """The live driver with stereo: tests/test_stereo_fused.py's scenario
+    (9 s, seed 4, no lines, wheel, 60 frames) through the port's VioSystem
+    at B = 1, once with a right image a frame and two cameras, once mono,
+    held to that test's gates (stereo RMSE < 0.30 m, stereo acceptance
+    above mono's, stereo RMSE < 1.25 x mono's) and the stereo run to two LK
+    launches and one gate/Gram launch per frame."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    out = {}
+    for stereo in (True, False):
+        sim = Simulator(SimConfig(duration=9.0, n_landmarks=350, n_lines=0, width=W_IMG,
+                                  height=H_IMG, seed=4))
+        events = examples.live_events(sim, LIVE_T0, STEREO_FRAMES, stereo=stereo)
+        system = VioSystem(examples.stereo_options(EstimatorOptions(), stereo), device=dev)
+        examples.live_calibrate(system, sim, LIVE_T0)
+        launches, timing, wall, capture = drive_live(system, events, n_gram=1)
+        st = system.stats
+        errs = [np.linalg.norm(p - sim.gt_pose(t)[1]) for t, _, p in system.traj]
+        rmse = float(np.sqrt(np.mean(np.square(errs))))
+        acc = st["cam_accept"] / max(st["cam_accept"] + st["cam_reject"], 1)
+        p50, p90 = latency(timing)
+        out[stereo] = dict(rmse=rmse, acc=acc, launches=launches, capture=capture, n=st["updates"],
+                           p50_ms=p50, p90_ms=p90, fps=st["updates"] / wall, D=system.layout.dim)
+        print(f"live driver, {'stereo' if stereo else 'mono'} (B=1, D={system.layout.dim}): "
+              f"stats {st}; RMSE {rmse:.4f} m; acceptance {acc:.4f}; launches {launches}; frame "
+              f"latency p50 {p50:.3f} ms, p90 {p90:.3f} ms; {out[stereo]['fps']:.2f} frames/s")
+    s, m = out[True], out[False]
+    n = s["n"]
+    if s["launches"] != {"lk_pyramid": 2 * n, "msckf_gram_gate": n}:
+        raise AssertionError(f"live driver, stereo: {s['launches']} in {n} frames, want two LK "
+                             "and one gate/Gram per frame")
+    if not (n == STEREO_FRAMES and s["rmse"] < 0.30 and s["acc"] > m["acc"]
+            and s["rmse"] < 1.25 * m["rmse"]):
+        raise AssertionError("live driver, stereo: missed the gates of "
+                             "tests/test_stereo_fused.py (RMSE < 0.30 m, acceptance above "
+                             "mono's, RMSE < 1.25 x mono's)")
+    return s["launches"], s, s["capture"]
+
+
+def newest_mixed(calls):
+    """The newest of the kept gate/Gram calls whose plain result accepts
+    some features and rejects others, and how many calls back it is."""
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate_plain
+
+    for back, args in enumerate(reversed(calls)):
+        ok = gram_gate_plain(*args)[2]
+        if 0 < int(ok.sum()) < ok.numel():
+            return back, args
+    raise AssertionError("no kept gate/Gram call accepts some features and rejects others")
+
+
+def phase_new_path_kernels(stereo_args, dyn_args, dyn_live_args, stereo_live_args):
+    """Both kernels against their plain versions on the new paths' own
+    arguments: the stereo images-in frame's last point call (M = 32,
+    D = 147) and its L->R LK call; the dynamic images-in frame's last
+    (interpolated) point call; the dynamic live driver's interpolated point
+    rows (the newest kept mixed call); the stereo live driver's point call
+    (M = 48, D = 127)."""
+    from plviwo_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.library()
+    out = {}
+
+    def shape(args):
+        return "x".join(str(n) for n in args[0].shape)
+
+    args = stereo_args["gram_gate"][0]
+    out["stereo_frame_points"] = phase_gram(f"stereo images-in last frame, points {shape(args)}",
+                                            args)
+    out["stereo_frame_lk_lr"] = phase_lk("stereo images-in last frame, L->R", stereo_args["lk"])
+    args = dyn_args["gram_gate"][0]
+    out["dynamic_frame_points"] = phase_gram(
+        f"dynamic images-in last frame, interpolated points {shape(args)}", args)
+    back, args = newest_mixed(dyn_live_args["gram_gate"][0::2])
+    out["dynamic_driver_points"] = phase_gram(
+        f"dynamic live driver frame (last - {back}), interpolated points {shape(args)}", args)
+    back, args = newest_mixed(stereo_live_args["gram_gate"])
+    out["stereo_driver_points"] = phase_gram(
+        f"stereo live driver frame (last - {back}), points {shape(args)}", args)
+    for key in ("stereo_frame_points", "stereo_driver_points"):
+        a = (stereo_args if key == "stereo_frame_points" else stereo_live_args)["gram_gate"][0]
+        M, D = a[0].shape[2], a[0].shape[3]
+        print(f"gate/Gram pass-1 shared memory at M={M}, D={D}, k=3: "
+              f"{lib.msckf_gram_gate_smem_bytes(M, D, 3)} B")
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs a CUDA card",
               file=sys.stderr)
@@ -776,6 +1151,8 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     print(f"  ptxas, LK kernel: {lk_spills(log)}")
+    for line in gram_ptxas(log):
+        print(f"  ptxas, gate/Gram {line}")
 
     gram_filter = [phase_gram(f"k={k} B={B} F={F} M={M_ROWS} D=162",
                               gram_args(k, B, F, M_ROWS, 162, dev))
@@ -787,6 +1164,12 @@ def main() -> int:
     gram_drv = [phase_gram(f"k={k} B=1 F={F} M={2 * LIVE_OBS} D=116",
                            gram_args(k, 1, F, 2 * LIVE_OBS, 116, dev))
                 for k, F in ((3, LIVE_PTS), (4, LIVE_LINES))]
+    # stereo point rows (M = 4 obs): the images-in frame with two cameras
+    # (D = 147) and the live driver (D = 127)
+    gram_stereo = [phase_gram(f"stereo k=3 B={Bn} F={F} M={M} D={D}",
+                              gram_args(3, Bn, F, M, D, dev))
+                   for Bn, F, M, D in ((B_IMG, N_PTS, 4 * MAX_OBS, 147),
+                                       (1, LIVE_PTS, 4 * LIVE_OBS, 127))]
     lk = phase_lk("synthetic", lk_args(dev))
 
     filter_launches, filter_fps = phase_filter_only(dev)
@@ -805,6 +1188,15 @@ def main() -> int:
     gram_live, lk_live = phase_live_kernels(live_args)
     print(f"live driver at B=1 on {card}: {live['fps']:.2f} frames/s, frame latency p50 "
           f"{live['p50_ms']:.3f} ms / p90 {live['p90_ms']:.3f} ms")
+    st_launches, st_fps, st_args = phase_images_in_stereo(dev)
+    dyn_launches, dyn_fps, dyn_args = phase_images_in_dynamic(sim, frames, dev)
+    ldyn_launches, ldyn, ldyn_args = phase_live_dynamic(dev)
+    lst_launches, lst, lst_args = phase_live_stereo(dev)
+    new_paths = phase_new_path_kernels(st_args, dyn_args, ldyn_args, lst_args)
+    print(f"frames/s on {card}: stereo images-in {st_fps:.1f}, dynamic images-in {dyn_fps:.1f} "
+          f"at B={B_IMG}; live driver at B=1, dynamic cloning p50 {ldyn['p50_ms']:.3f} ms / p90 "
+          f"{ldyn['p90_ms']:.3f} ms, stereo p50 {lst['p50_ms']:.3f} ms / p90 "
+          f"{lst['p90_ms']:.3f} ms")
 
     # one frame's two calls (points k = 3, lines k = 4): times summed, the
     # bound of their bytes and operations together
@@ -825,7 +1217,8 @@ def main() -> int:
          "replaces": "plviwo_tpu/ops/msckf_kernel.py:205",
          "launches": img_launches["msckf_gram_gate"],
          "max_abs_err": max(g["max_abs_err"] for g in
-                            gram_filter + gram_img + gram_frame + gram_live + gram_drv),
+                            gram_filter + gram_img + gram_frame + gram_live + gram_drv
+                            + gram_stereo + [v for k, v in new_paths.items() if "lk" not in k]),
          "ms": gram_img_sum["ms"], "plain_ms": gram_img_sum["plain_ms"],
          "bound_ms": gram_img_sum["bound_ms"], "bound_by": gram_img_sum["bound_by"],
          "library_ms": None, "per": "images-in frame: points (k=3) + lines (k=4) calls",
@@ -834,7 +1227,15 @@ def main() -> int:
          "launches_by_path": {"images_in": img_launches["msckf_gram_gate"],
                               "images_in_points_only": pts_launches["msckf_gram_gate"],
                               "filter_only": filter_launches,
-                              "live_driver_b1": live_launches["msckf_gram_gate"]},
+                              "live_driver_b1": live_launches["msckf_gram_gate"],
+                              "images_in_stereo": st_launches["msckf_gram_gate"],
+                              "images_in_dynamic": dyn_launches["msckf_gram_gate"],
+                              "live_driver_dynamic": ldyn_launches["msckf_gram_gate"],
+                              "live_driver_stereo": lst_launches["msckf_gram_gate"]},
+         "stereo_shapes": {name: times(g) for name, g in zip(("images_in_d147_m32",
+                                                               "live_driver_d127_m48"),
+                                                              gram_stereo)},
+         "new_paths": {k: times(v) for k, v in new_paths.items() if "lk" not in k},
          "live_driver_b1": {name: times(g) for name, g in zip(("points", "lines"), gram_live)},
          "driver_shapes_d116": {name: times(g) for name, g in zip(("points", "lines"), gram_drv)},
          "filter_only_shapes": per_frame(gram_filter),
@@ -843,15 +1244,22 @@ def main() -> int:
          "source": "plviwo_tpu_torch/csrc/lk_pyramid.cu",
          "replaces": "plviwo_tpu/ops/lk_kernel.py:141",
          "launches": img_launches["lk_pyramid"],
-         "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"], lk_live["max_abs_err"]),
+         "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"], lk_live["max_abs_err"],
+                            new_paths["stereo_frame_lk_lr"]["max_abs_err"]),
          "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": None,
          "launches_by_path": {"images_in": img_launches["lk_pyramid"],
                               "images_in_points_only": pts_launches["lk_pyramid"],
-                              "live_driver_b1": live_launches["lk_pyramid"]},
+                              "live_driver_b1": live_launches["lk_pyramid"],
+                              "images_in_stereo": st_launches["lk_pyramid"],
+                              "images_in_dynamic": dyn_launches["lk_pyramid"],
+                              "live_driver_dynamic": ldyn_launches["lk_pyramid"],
+                              "live_driver_stereo": lst_launches["lk_pyramid"]},
          "live_driver_b1": times(lk_live),
+         "stereo_frame_lr": times(new_paths["stereo_frame_lk_lr"]),
          "captured_frame": times(lk_frame)}
     ]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to end")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))

@@ -17,7 +17,7 @@ Differences by design:
 
 The package imports torch, numpy and scipy, never jax and nothing of the
 JAX package: it keeps its own copies of the jax-free modules it needs
-(`core/layout.py`, `ops/chi2.py`).  Entry points put their tensors on the
+(`core/layout.py`, `ops/chi2.py`, `core/dynamic_cloning.py`).  Entry points put their tensors on the
 card unless the caller passes device="cpu".
 """
 

@@ -15,10 +15,18 @@ both have attached (a product of attach masks, not a dictionary of ids).
 Observation histories carry (clone slot, time) pairs, used at harvest only
 while the clone ring slot still holds the same timestamp.
 
-Not ported yet, and refused with NotImplementedError rather than skipped:
-stereo and dynamic cloning (ROADMAP A8).  The pyramid has the JAX
-package's fixed three levels.  Nothing in a frame reads a value back to the
-host; metrics are (B,) tensors.
+Stereo (`use_stereo`, a right image): the left stream keeps slot
+identity, and each frame one more LK launch tracks the survivors from the
+left pyramid into the right one (the guess at the left position), gated on
+the epipolar band; the right observations share the left ones' history
+cursors and clone slots, and the point rows take both series, a camera
+per observation.  Dynamic cloning (`use_dynamic`, a per-sequence
+`do_clone`): marginalize + clone runs under a mask, point observations are
+resolved by time against the clone ring and update interpolated poses, and
+lines keep the slot liveness test.  With both flags on the dynamic rows
+win and the right observations go unused, as in the JAX package.  The
+pyramid has the JAX package's fixed three levels.  Nothing in a frame
+reads a value back to the host; metrics are (B,) tensors.
 """
 
 from __future__ import annotations
@@ -36,14 +44,16 @@ from ..ops import line_detect, lk_kernel
 from ..update import wheel as wheel_up
 from . import ekf, propagator
 from .state import CUDA, FilterState, checked_device, newest_clone_slot
-from .step import (_auto_marginalize, _camera_msckf_rows, _gps_rows, _line_msckf_rows,
-                   _rows_to_gram, _wheel_rows)
+from .step import (_auto_marginalize, _camera_msckf_rows, _camera_msckf_rows_interp,
+                   _camera_msckf_rows_stereo, _gps_rows, _line_msckf_rows, _rows_to_gram,
+                   _wheel_rows)
 
 F32 = torch.float32
 F64 = torch.float64
 LEVELS = 3  # pyramid levels (TrackState holds pyr0..pyr2)
 MIN_LINE_LENGTH = 30.0  # px at full resolution, below which NMS drops a candidate
 MIN_TRACK_LINE = 3  # observations a lost line needs to be harvested
+MAX_Y_DIFF = 6.0  # px: the epipolar band of the L->R association (stereo)
 
 
 @dataclasses.dataclass
@@ -69,6 +79,11 @@ class TrackState:
     lhist_t: torch.Tensor   # (B,Lm,O) f64
     lhist_slot: torch.Tensor  # (B,Lm,O) int64
     l_nobs: torch.Tensor    # (B,Lm) int64
+    uv_r: torch.Tensor      # (B,N,2) f32 stereo: right-camera positions (this frame)
+    rvalid: torch.Tensor    # (B,N) bool right association ok
+    hist_uv_r: torch.Tensor  # (B,N,O,2) f32 right observations at the left cursors
+    hist_uvn_r: torch.Tensor  # (B,N,O,2) f32
+    hist_rvalid: torch.Tensor  # (B,N,O) bool
     key: torch.Tensor       # (B,) int64 RANSAC key per sequence (the JAX package's `key`)
     counter: torch.Tensor   # (B,) int64 frames tracked: with `key`, what RANSAC draws from
 
@@ -81,9 +96,7 @@ def make_track_state(height: int, width: int, n_pts: int = 128, max_lines: int =
                      device=CUDA) -> TrackState:
     """Empty front-end state of `batch` sequences on `device`, with the JAX
     package's positional signature.  Sequence b's RANSAC key is seed + b
-    (JAX's bench gives sequence b `PRNGKey(b)`), its frame counter 0.  The
-    stereo fields of the JAX state are not allocated (stereo is ROADMAP
-    A8)."""
+    (JAX's bench gives sequence b `PRNGKey(b)`), its frame counter 0."""
     dev = checked_device(device)
     B, N, Lm, O = batch, n_pts, max_lines, max_obs
 
@@ -101,6 +114,8 @@ def make_track_state(height: int, width: int, n_pts: int = 128, max_lines: int =
         lhist_uv=z(Lm, O, 4), lhist_uvn=z(Lm, O, 4),
         lhist_t=torch.full((B, Lm, O), -torch.inf, dtype=F64, device=dev),
         lhist_slot=z(Lm, O, dtype=torch.int64), l_nobs=z(Lm, dtype=torch.int64),
+        uv_r=z(N, 2), rvalid=z(N, dtype=torch.bool), hist_uv_r=z(N, O, 2), hist_uvn_r=z(N, O, 2),
+        hist_rvalid=z(N, O, dtype=torch.bool),
         key=seed + torch.arange(B, dtype=torch.int64, device=dev), counter=z(dtype=torch.int64))
 
 
@@ -132,6 +147,17 @@ def _append_obs(hist_uv, hist_uvn, hist_t, hist_slot, n_obs, mask, uv, uvn, t_ne
     hist_t = torch.where(at, t_new[:, None, None], hist_t)
     hist_slot = torch.where(at, slot[:, None, None].to(hist_slot.dtype), hist_slot)
     return hist_uv, hist_uvn, hist_t, hist_slot, torch.where(mask, n_obs + 1, n_obs)
+
+
+def _append_r(h_uv, h_uvn, h_rv, cursor, mask, uv_r, uvn_r, rv):
+    """Write the right-camera observation at the left append's cursors
+    (masked).  uv_r, uvn_r (B,N,2); rv (B,N) bool."""
+    O = h_uv.shape[2]
+    cur = torch.clamp(cursor, 0, O - 1)
+    at = (torch.arange(O, device=cur.device) == cur[..., None]) & mask[..., None]
+    return (torch.where(at[..., None], uv_r[:, :, None].to(F32), h_uv),
+            torch.where(at[..., None], uvn_r[:, :, None].to(F32), h_uvn),
+            torch.where(at, rv[..., None], h_rv))
 
 
 def _restart(hist_uv, hist_uvn, hist_t, hist_slot, n_obs, mask):
@@ -320,7 +346,7 @@ def _line_histories(ts: TrackState, ls: _LineSlots, lseg_n, uv_all, valid_all, t
 def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
                 iters: int = 6, grid_x: int = 16, grid_y: int = 12,
                 min_px_dist: int = 10, min_track: int = 4, cam_model: int = 0,
-                lines: bool = True):
+                lines: bool = True, img_r=None, cam_k_r=None):
     """One tracked camera frame of B sequences: points and, with `lines`,
     lines.
 
@@ -332,7 +358,15 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
     per-track harvest decision, the caller adds the clone ring liveness
     test.  Without `lines` the line block is skipped: the line fields of
     ts are returned as they came and line_harvest is None (the JAX package
-    always runs it; nothing of it reaches the filter without line rows)."""
+    always runs it; nothing of it reaches the filter without line rows).
+
+    With a right image img_r (B,H,W) (stereo; cam_k_r (B,8) its
+    intrinsics) the survivors are tracked from this frame's left pyramid
+    into the right one (a second LK launch, the guess at the left
+    position), kept where |v_r - v_l| < MAX_Y_DIFF, and written at the
+    left append's cursors; fresh detections carry no right observation.
+    point_harvest then has three more entries, (obs_uv_r, obs_uvn_r,
+    obs_mask & right valid), as the JAX package's."""
     N = ts.uv.shape[1]
     O = ts.hist_uv.shape[2]
     B, Lm = ts.lseg.shape[:2]
@@ -361,6 +395,17 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
                        uv_cur, zn_next, t_new, slot_new)
     n_obs = hist[4]
 
+    # ---- stereo: one L->R LK pass per frame under slot identity ----
+    stereo = img_r is not None
+    if stereo:
+        pyr_r = image_ops.build_pyramid(image_ops.hist_equalize_quantile(img_r.to(F32)),
+                                        LEVELS)
+        uv_r, ok_r = lk_kernel.pyramidal_lk(pyr, pyr_r, uv_cur, alive, LEVELS, half, iters)
+        ok_r = ok_r & (torch.abs(uv_r[..., 1] - uv_cur[..., 1]) < MAX_Y_DIFF)
+        uvn_r = cam_ops.undistort(uv_r.to(F64), cam_k_r[:, None, :], cam_model)
+        hist_r = _append_r(ts.hist_uv_r, ts.hist_uvn_r, ts.hist_rvalid, ts.n_obs, alive, uv_r,
+                           uvn_r, ok_r)
+
     # ---- harvest full tracks (keep the corner tracked; restart history) ----
     h_full = alive & (n_obs >= O)
     obs_cnt = torch.where(h_dead, ts.n_obs, n_obs)  # dead: pre-append count
@@ -368,6 +413,13 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
                 & (h_dead | h_full)[..., None])
     point_harvest = (hist[0], hist[1], hist[3], obs_mask, hist[2])
     hist = _append_obs(*_restart(*hist, h_full), h_full, uv_cur, zn_next, t_new, slot_new)
+    if stereo:
+        point_harvest += (hist_r[0], hist_r[1], obs_mask & hist_r[2])
+        full = h_full[..., None]
+        hist_r = _append_r(torch.where(full[..., None], 0.0, hist_r[0]),
+                           torch.where(full[..., None], 0.0, hist_r[1]),
+                           torch.where(full, False, hist_r[2]), torch.zeros_like(n_obs),
+                           h_full, uv_r, uvn_r, ok_r)
 
     # ---- re-detect into free slots: fresh tracks, the detection as first obs ----
     det_uv, det_ok = klt_ops.detect_grid(pyr[0], uv_cur, alive, grid_x, grid_y, N,
@@ -388,20 +440,29 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
         zn_new, lseg_n = zn[:, :N], zn[:, N:].reshape(B, Lm, 4)
         lhist, line_harvest, lattach = _line_histories(ts, ls, lseg_n, uv_all, valid_all, t_new,
                                                        slot_new)
-        line_fields = dict(
+        fields = dict(
             lseg=ls.lseg_all.to(F32), lvalid=ls.l_alive | ls.lfilled, lattach=lattach,
             lhist_uv=lhist[0], lhist_uvn=lhist[1], lhist_t=lhist[2], lhist_slot=lhist[3],
             l_nobs=lhist[4])
     else:
         zn_new = cam_ops.undistort(uv_all.to(F64), kb, cam_model)
-        line_harvest, line_fields = None, {}
+        line_harvest, fields = None, {}
     hist = _append_obs(*_restart(*hist, filled), filled, uv_all, zn_new, t_new, slot_new)
+    if stereo:
+        # fresh detections carry no right observation on their first frame
+        # (the L->R association runs before the re-detect)
+        fresh = filled[..., None]
+        fields.update(
+            uv_r=uv_r.to(F32), rvalid=alive & ok_r,
+            hist_uv_r=torch.where(fresh[..., None], 0.0, hist_r[0]),
+            hist_uvn_r=torch.where(fresh[..., None], 0.0, hist_r[1]),
+            hist_rvalid=torch.where(fresh, False, hist_r[2]))
 
     ts2 = ts.replace(
         pyr0=pyr[0], pyr1=pyr[1], pyr2=pyr[2], has_prev=torch.ones_like(ts.has_prev),
         uv=uv_all.to(F32), valid=valid_all, hist_uv=hist[0], hist_uvn=hist[1],
         hist_t=hist[2], hist_slot=hist[3], n_obs=hist[4], counter=ts.counter + 1,
-        **line_fields)
+        **fields)
     return ts2, point_harvest, line_harvest
 
 
@@ -416,6 +477,15 @@ def _liveness(state: FilterState, hist_slot, hist_t, obs_mask):
     return obs_mask & slot_ok & (slot_t == hist_t)
 
 
+def _select(mask, a: FilterState, b: FilterState) -> FilterState:
+    """Per sequence, the fields of a where mask (B,) is true, else b's."""
+    def pick(x, y):
+        return torch.where(mask.view((-1,) + (1,) * (x.ndim - 1)), x, y)
+
+    return a.replace(**{f.name: pick(getattr(a, f.name), getattr(b, f.name))
+                        for f in dataclasses.fields(a) if f.name != "layout"})
+
+
 def fused_frame(state: FilterState, ts: TrackState, img,
                 imu_t, imu_w, imu_a, t_new,
                 wheel_t, wheel_m1, wheel_m2, wheel_valid,
@@ -426,7 +496,8 @@ def fused_frame(state: FilterState, ts: TrackState, img,
                 use_wheel: bool = True, use_lines: bool = True,
                 use_gps: bool = False, gps_t=None, gps_p=None, gps_valid=None,
                 sigma_gps: float = 3.0, gps_chi2_mult: float = 1.0,
-                use_dynamic: bool = False, use_stereo: bool = False):
+                use_dynamic: bool = False, do_clone=None, use_stereo: bool = False,
+                img_r=None):
     """One images-in PL-VIWO frame for B sequences: pixels -> tracking
     (points and lines) -> filter, with ONE joint EKF update of the point,
     line, wheel and GPS rows.
@@ -438,28 +509,48 @@ def fused_frame(state: FilterState, ts: TrackState, img,
     frame.  Returns (state', ts', metrics of (B,) tensors).  With
     use_lines=False no line rows join the update, as in JAX, and the line
     front-end, whose tracks would reach nothing else, is skipped: the line
-    fields of ts stay as they came (JAX runs it all the same)."""
-    if use_stereo or use_dynamic:
-        raise NotImplementedError("use_stereo / use_dynamic: stereo and dynamic cloning "
-                                  "are not ported yet (ROADMAP A8)")
+    fields of ts stay as they came (JAX runs it all the same).
+
+    use_dynamic: do_clone (B,) bool says per sequence whether a clone lands
+    at this frame (the host's rate policy); the point rows update poses
+    interpolated between clones, and the wheel rows, clone to clone, count
+    only where do_clone.  use_stereo: img_r (B,H,W) the right image, camera
+    1 of the state (camera 0 where it has one camera)."""
     # --- filter time update ---
     state = propagator.propagate(state, imu_t, imu_w, imu_a, t_new, gravity, sigmas)
-    state = _auto_marginalize(state, t_new, window_size)
-    slot0 = newest_clone_slot(state)  # wheel interval start clone
-    state = ekf.augment_clone(state)
-    slot1 = newest_clone_slot(state)  # the clone just inserted
+    state_m = _auto_marginalize(state, t_new, window_size)
+    slot0 = newest_clone_slot(state_m)  # wheel interval start clone
+    state_c = ekf.augment_clone(state_m)
+    slot1 = newest_clone_slot(state_c)  # the clone just inserted
+    # dynamic cloning: marginalize + clone under the per-sequence mask (the
+    # slots are the cloned variant's, as in JAX)
+    state = _select(do_clone, state_c, state) if use_dynamic else state_c
 
     # --- front-end ---
-    ts, (p_uv, p_uvn, p_slot, p_mask, p_t), line_harvest = track_frame(
+    n_cams = state.cam_k.shape[1]
+    ts, point_harvest, line_harvest = track_frame(
         ts, img, state.cam_k[:, 0], t_new, slot1, half=half, iters=iters, grid_x=grid_x,
         grid_y=grid_y, min_px_dist=min_px_dist, min_track=min_track, cam_model=model,
-        lines=use_lines)
-    p_mask = _liveness(state, p_slot, p_t, p_mask)
+        lines=use_lines, img_r=img_r if use_stereo else None,
+        cam_k_r=state.cam_k[:, 1 % n_cams])
+    p_uv, p_uvn, p_slot, p_mask, p_t = point_harvest[:5]
+    if not use_dynamic:
+        # dynamic: observations are resolved by time in the row builder
+        p_mask = _liveness(state, p_slot, p_t, p_mask)
     p_mask = p_mask & (torch.sum(p_mask, dim=-1, keepdim=True) >= 3)
 
     # --- rows at the common pre-update state, summed and factored once ---
-    G, c, metrics = _camera_msckf_rows(state, p_uv, p_uvn, p_slot, p_mask, sigma_pix,
-                                       chi2_mult, model, cam_dtype)
+    if use_dynamic:
+        G, c, metrics = _camera_msckf_rows_interp(state, p_uv, p_uvn, p_t, p_mask, sigma_pix,
+                                                  chi2_mult, model, cam_dtype)
+    elif use_stereo:
+        r_uv, r_uvn, r_mask = point_harvest[5:]
+        G, c, metrics = _camera_msckf_rows_stereo(state, p_uv, p_uvn, p_slot, p_mask, r_uv,
+                                                  r_uvn, r_mask & p_mask, sigma_pix, chi2_mult,
+                                                  model, cam_dtype)
+    else:
+        G, c, metrics = _camera_msckf_rows(state, p_uv, p_uvn, p_slot, p_mask, sigma_pix,
+                                           chi2_mult, model, cam_dtype)
     none = torch.zeros_like(metrics["accepted"], dtype=torch.int32)
     lines_accepted = wheel_accepted = gps_accepted = line_harvested = none
     if use_lines:
@@ -472,8 +563,11 @@ def fused_frame(state: FilterState, ts: TrackState, img,
             cam_dtype=cam_dtype)
         G, c = G + G2, c + c2
     if use_wheel:
+        # dynamic cloning: the interval is clone to clone, so rows land only
+        # on clone frames (the host's window spans the whole gap)
         Hw, rw, mw, wheel_accepted = _wheel_rows(
-            state, slot0, slot1, wheel_t, wheel_m1, wheel_m2, wheel_valid, wheel_noise,
+            state, slot0, slot1, wheel_t, wheel_m1, wheel_m2,
+            wheel_valid & do_clone if use_dynamic else wheel_valid, wheel_noise,
             chi2_mult, wheel_type, preint_dtype=cam_dtype)
         Gw, cw = _rows_to_gram(Hw, rw, mw)
         G, c = G + Gw, c + cw

@@ -5,14 +5,17 @@ marginalization -> clone augmentation -> point rows (triangulate, systems,
 gate/Gram kernel, k = 3) + line rows (two-plane triangulation, systems,
 gate/Gram kernel, k = 4) + wheel rows (preintegration, FEJ system, chi2
 gate) + GPS rows (images-in frame only) -> one summed Gram system -> one
-compression -> one EKF update.
+compression -> one EKF update.  The images-in frame's two other point-row
+builders live here too: stereo (each feature's left and right series
+concatenated, a camera per observation) and dynamic cloning (each
+observation at the pose interpolated between the clones that bracket its
+time); both gate through the same kernel.
 
 All control flow is masked; nothing in the step reads a value back to the
 host, so metrics come back as (B,) tensors.  The gate always goes through
 `ops.msckf_kernel.gram_gate` (the CUDA kernel on the card, its plain
 version on the CPU); the JAX package's XLA gate path and its
-`use_pallas` switch are not ported.  Stereo and dynamic cloning are not
-ported yet.
+`use_pallas` switch are not ported.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ import torch
 
 from ..ops.chi2 import _TABLE as _CHI2_NP
 from ..ops.msckf_kernel import gram_gate
+from ..ops import lie
 from ..update import cam_helper
 from ..update import gps as gps_up
 from ..update import lines as line_up
 from ..update import wheel as wheel_up
 from . import ekf, propagator
+from .interp import interpolate_pose_linear
 from .layout import StateLayout
 from .state import FilterState, newest_clone_slot
 
@@ -101,6 +106,23 @@ def _cam(state, cd):
             state.cam_k[:, 0].to(cd))
 
 
+def _point_gram(state: FilterState, Hx, Hf, r, rowmask, ok, avg_err, sigma_pix, chi2_mult):
+    """The point rows' gate: rows of features that triangulated well,
+    whitened by sigma_pix, through the gate/Gram kernel (k = 3).  Returns
+    (G, c, metrics)."""
+    rowmask = rowmask & ok[..., None]
+    sigma = math.sqrt(sigma_pix**2)
+    # whitened rows: the raw-residual cap of 20 px becomes 20/sigma
+    G, c, feat_ok, n_rows = _gram_rows(Hx, Hf, r, rowmask, state.cov, sigma,
+                                       chi2_mult, 20.0 / sigma)
+    metrics = {
+        "accepted": torch.sum(feat_ok, dim=-1),
+        "rows": n_rows,
+        "avg_reproj": torch.mean(torch.where(ok, avg_err, 0.0), dim=-1),
+    }
+    return G, c, metrics
+
+
 def _camera_msckf_rows(state: FilterState, obs_uv, obs_uvn, obs_slot, obs_valid,
                        sigma_pix, chi2_mult, model: int, cam_dtype):
     """Point-MSCKF slice: triangulate -> systems -> gate/Gram kernel (k = 3).
@@ -120,17 +142,103 @@ def _camera_msckf_rows(state: FilterState, obs_uv, obs_uvn, obs_slot, obs_valid,
         state.clone_q.to(cd), state.clone_p.to(cd),
         state.clone_q_fej.to(cd), state.clone_p_fej.to(cd),
         cam_q, cam_p, cam_k, model, lo.n_clones, lo.clone_off, lo.dim)
-    rowmask = rowmask & ok[..., None]
-    sigma = math.sqrt(sigma_pix**2)
-    # whitened rows: the raw-residual cap of 20 px becomes 20/sigma
-    G, c, feat_ok, n_rows = _gram_rows(Hx, Hf, r, rowmask, state.cov, sigma,
-                                       chi2_mult, 20.0 / sigma)
-    metrics = {
-        "accepted": torch.sum(feat_ok, dim=-1),
-        "rows": n_rows,
-        "avg_reproj": torch.mean(torch.where(ok, avg_err, 0.0), dim=-1),
-    }
-    return G, c, metrics
+    return _point_gram(state, Hx, Hf, r, rowmask, ok, avg_err, sigma_pix, chi2_mult)
+
+
+def _bound_times(state: FilterState, ts):
+    """Bounding clone slots of arbitrary times over the clone ring.
+
+    ts (B,...) f64.  Returns (slot0, slot1, lam, covered), each shaped like
+    ts: the newest valid clone at or before t and the oldest at or after it
+    (the first slot among equal times, as JAX's argmax/argmin take it), the
+    interpolation fraction, and whether t is bracketed at all.  Where it is
+    not, lam is 0 (JAX leaves it NaN there; every caller masks those
+    entries)."""
+    B = ts.shape[0]
+    t = ts.reshape(B, -1, 1)
+    cv, ct = state.clone_valid[:, None], state.clone_t[:, None]  # (B,1,C)
+    le, ge = cv & (ct <= t), cv & (ct >= t)
+    t_le = torch.where(le, ct, -torch.inf)
+    t_ge = torch.where(ge, ct, torch.inf)
+    s0 = torch.argmax(t_le, dim=-1)  # (B,T)
+    s1 = torch.argmin(t_ge, dim=-1)
+    covered = torch.any(le, dim=-1) & torch.any(ge, dim=-1)
+    t0 = torch.gather(t_le, -1, s0[..., None])[..., 0]
+    t1 = torch.gather(t_ge, -1, s1[..., None])[..., 0]
+    t = t[..., 0]
+    lam = torch.where(covered & (t1 > t0), (t - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0)
+    return (s0.reshape(ts.shape), s1.reshape(ts.shape), lam.reshape(ts.shape),
+            covered.reshape(ts.shape))
+
+
+def _camera_msckf_rows_interp(state: FilterState, obs_uv, obs_uvn, obs_t, obs_valid,
+                              sigma_pix, chi2_mult, model: int, cam_dtype):
+    """Point rows at interpolated poses (dynamic cloning): each
+    observation's time obs_t (B,F,O) f64 is bracketed by clone ring slots
+    (`_bound_times`), its pose is the linear interpolation between them,
+    and its Jacobian spreads over both clones
+    (`cam_helper.point_systems_interp_batch`).  Observations the clone
+    window does not bracket are masked, and a feature with any history
+    entry older than the oldest clone is rejected, as in JAX.  Then the
+    gate/Gram kernel, k = 3, as the mono rows.  Returns (G, c, metrics)."""
+    lo: StateLayout = state.layout
+    cd = cam_dtype
+    s0, s1, lam, covered = _bound_times(state, obs_t)
+    valid = obs_valid & covered
+    gs = cam_helper.gather_slots
+    R_t, p_t = interpolate_pose_linear(gs(state.clone_q, s0), gs(state.clone_p, s0),
+                                       gs(state.clone_q, s1), gs(state.clone_p, s1), lam)
+    cam_q, cam_p, cam_k = _cam(state, cd)
+    p_f, ok, avg_err = cam_helper.triangulate_batch(
+        obs_uvn.to(cd), lie.rot_2_quat(R_t).to(cd), p_t.to(cd), valid, cam_q, cam_p)
+    fx = state.cam_k[:, 0, 0].to(cd)
+    ok = ok & (avg_err < (3.0 / fx)[:, None])
+    # JAX's interpolation fraction is NaN for an entry with no valid clone at
+    # or before its time (the history's -inf padding included), and that NaN
+    # fails the whole feature's triangulation: such features are rejected
+    t_first = torch.amin(torch.where(state.clone_valid, state.clone_t, torch.inf), dim=-1)
+    ok = ok & torch.all(obs_t >= t_first[:, None, None], dim=-1)
+
+    Hx, Hf, r, rowmask = cam_helper.point_systems_interp_batch(
+        p_f, obs_uv.to(cd), s0, s1, lam.to(cd), valid,
+        state.clone_q.to(cd), state.clone_p.to(cd),
+        state.clone_q_fej.to(cd), state.clone_p_fej.to(cd),
+        cam_q, cam_p, cam_k, model, lo.n_clones, lo.clone_off, lo.dim)
+    return _point_gram(state, Hx, Hf, r, rowmask, ok, avg_err, sigma_pix, chi2_mult)
+
+
+def _camera_msckf_rows_stereo(state: FilterState, obs_uv, obs_uvn, obs_slot, obs_valid,
+                              r_uv, r_uvn, r_valid, sigma_pix, chi2_mult, model: int,
+                              cam_dtype):
+    """Stereo point rows: each feature's left (B,F,O) and right
+    observation series (r_*, at the left ones' clone slots) concatenated
+    along the observation axis, M = 4 O rows, with camera 0 for the left
+    and camera 1 (clipped to n_cams - 1) for the right, triangulated and
+    linearized jointly (`cam_helper.point_systems_batch_multicam`), then
+    the gate/Gram kernel, k = 3, as the mono rows.  Returns (G, c,
+    metrics)."""
+    lo: StateLayout = state.layout
+    cd = cam_dtype
+    uv2 = torch.cat([obs_uv, r_uv], dim=2)
+    uvn2 = torch.cat([obs_uvn, r_uvn], dim=2)
+    slot2 = torch.cat([obs_slot, obs_slot], dim=2)
+    valid2 = torch.cat([obs_valid, r_valid], dim=2)
+    cam2 = torch.cat([torch.zeros_like(obs_slot),
+                      torch.full_like(obs_slot, min(1, lo.n_cams - 1))], dim=2)
+    gs = cam_helper.gather_slots
+    p_f, ok, avg_err = cam_helper.triangulate_batch(
+        uvn2.to(cd), gs(state.clone_q, slot2).to(cd), gs(state.clone_p, slot2).to(cd), valid2,
+        gs(state.cam_q, cam2).to(cd), gs(state.cam_p, cam2).to(cd))
+    fx = state.cam_k[:, 0, 0].to(cd)
+    ok = ok & (avg_err < (3.0 / fx)[:, None])
+
+    Hx, Hf, r, rowmask = cam_helper.point_systems_batch_multicam(
+        p_f, uv2.to(cd), slot2, cam2, valid2,
+        state.clone_q.to(cd), state.clone_p.to(cd),
+        state.clone_q_fej.to(cd), state.clone_p_fej.to(cd),
+        state.cam_q.to(cd), state.cam_p.to(cd), state.cam_k.to(cd),
+        model, lo.n_clones, lo.clone_off, lo.dim)
+    return _point_gram(state, Hx, Hf, r, rowmask, ok, avg_err, sigma_pix, chi2_mult)
 
 
 def _line_msckf_rows(state: FilterState, line_uv, line_uvn, line_slot, line_valid,
@@ -200,15 +308,7 @@ def _gps_rows(state: FilterState, gps_t, gps_p, gps_valid, sigma_gps, chi2_mult)
     lo: StateLayout = state.layout
     B, Ng = gps_t.shape
     ext_p = state.gps_p[:, 0] if lo.n_gps > 0 else state.p.new_zeros(B, 3)
-    cv, ct = state.clone_valid[:, None], state.clone_t[:, None]  # (B,1,C)
-    t = gps_t[..., None]
-    le, ge = cv & (ct <= t), cv & (ct >= t)
-    slot0 = torch.argmax(torch.where(le, ct, -torch.inf), dim=-1)  # (B,Ng)
-    slot1 = torch.argmin(torch.where(ge, ct, torch.inf), dim=-1)
-    covered = torch.any(le, dim=-1) & torch.any(ge, dim=-1)
-    ctv = torch.where(state.clone_valid, state.clone_t, torch.inf)
-    t0, t1 = torch.gather(ctv, 1, slot0), torch.gather(ctv, 1, slot1)
-    lam = torch.where(t1 > t0, (gps_t - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0)
+    slot0, slot1, lam, covered = _bound_times(state, gps_t)  # (B,Ng)
     H6, res = gps_up.gps_linear_system(state.clone_q, state.clone_p, state.clone_q_fej,
                                        state.clone_p_fej, slot0, slot1, lam, ext_p, gps_p)
     # the two 6-column blocks into D columns by one-hot products, summed

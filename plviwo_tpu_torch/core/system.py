@@ -11,11 +11,17 @@ ONE host transfer brings back the frame's metrics and pose.  Between frames
 the host-side `GpsUpdater` marks keyframes and runs the 4-DoF world->ENU
 initialization; after it, the fixes ride the frame's joint update.
 
+A right image (`feed_image(t, img, img_r)` with two cameras calibrated)
+runs the frame's stereo path.  With `opts.dynamic_cloning` the host rate
+policy (`core/dynamic_cloning.py`) decides per frame whether a clone lands:
+frames between clones still track, and their point rows update poses
+interpolated between clones with the pixel noise inflated by the
+interpolation error; the wheel window then runs clone to clone.
+
 Not ported, and refused with NotImplementedError rather than skipped:
 `feed_camera` / `feed_stereo` (the per-track path with its feature
 databases), the IMU(+wheel) auto-initialization, ZUPT and the native
-feature store (ROADMAP A9); a right image and dynamic cloning (A8).
-Callers seed the state with `initialize_from`.
+feature store (ROADMAP A9).  Callers seed the state with `initialize_from`.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ..ops.chi2 import _TABLE as CHI2_TABLE
 from ..update import gps as gps_up
 from ..update import wheel as wheel_up
 from ..utils.timing import TimeChecker
+from . import dynamic_cloning as dynclone
 from . import propagator
 from .frame import fused_frame, make_track_state
 from .layout import StateLayout
@@ -41,7 +48,7 @@ from .state import CUDA, FilterState, checked_device, make_state, newest_clone_s
 F32 = torch.float32
 F64 = torch.float64
 IMU_PAD = 64  # max IMU samples per propagate call
-WHEEL_PAD = 32  # wheel samples per frame window
+WHEEL_PAD = 32  # wheel samples per frame window (64 clone to clone, dynamic cloning)
 GPS_PAD = 4  # GPS fixes per frame
 # landmark error-state representations (the JAX package's cam_helper.REP_CODES)
 REP_CODES = {"GLOBAL_3D": 0, "GLOBAL_FULL_INVERSE_DEPTH": 1}
@@ -59,8 +66,6 @@ class VioSystem:
         if op.zupt.enabled:
             raise NotImplementedError("zero-velocity updates (opts.zupt) are not ported yet "
                                       "(ROADMAP A9)")
-        if op.dynamic_cloning:
-            raise NotImplementedError("dynamic cloning is not ported yet (ROADMAP A8)")
         if not op.cam.fused_lk_conv:
             raise NotImplementedError("the gather LK (cam.fused_lk_conv=False) is a TPU "
                                       "variant the port does not carry (ROADMAP A, Not ported)")
@@ -86,6 +91,13 @@ class VioSystem:
         self.frame_timing = {}  # ms of the latest frame: device step, host work, GPS
         self.wheel_type = wheel_up.TYPE_CODES.get(op.wheel.type, wheel_up.W3D_ANG)
         self._last_frame_t = None
+        self._fx = 1.0  # camera 0's fx, as set_calibration installs it
+        # dynamic cloning: the next clone time, the rate chosen and the IMU's
+        # acceleration at the last clone, and that clone's time
+        self._next_clone_t = None
+        self._clone_hz = 10.0
+        self._cur_accel = 0.0
+        self._last_clone_t = None
         self.track_state = None
         self.gps = (gps_up.GpsUpdater(op.gps, self.layout, CHI2_TABLE)
                     if op.gps.enabled else None)
@@ -110,6 +122,8 @@ class VioSystem:
 
     def set_calibration(self, cam_k, cam_q, cam_p, cam_dt=0.0, cam: int = 0):
         """Install camera calibration means into the state (per camera)."""
+        if cam == 0:
+            self._fx = float(cam_k[0])
         self.state = self.state.replace(
             cam_k=self._set_at("cam_k", cam, cam_k), cam_q=self._set_at("cam_q", cam, cam_q),
             cam_p=self._set_at("cam_p", cam, cam_p), cam_dt=self._set_at("cam_dt", cam, cam_dt))
@@ -180,20 +194,23 @@ class VioSystem:
                                   "yet (ROADMAP A9)")
 
     def feed_image(self, t, img, img_r=None):
-        """One RAW camera frame (H, W) in [0, 1]: the images-in live path.
-        Each frame is processed, once the IMU covers it, as one
-        `fused_frame` on the device (see the module docstring)."""
-        if img_r is not None:
-            raise NotImplementedError("a right image (stereo) is not ported yet (ROADMAP A8)")
-        img = torch.as_tensor(np.asarray(img, dtype=np.float32), device=self.device)
-        self._pending_images.append((float(t), img))
+        """One RAW camera frame (H, W) in [0, 1], and with img_r the right
+        camera's: the images-in live path.  Each frame is processed, once
+        the IMU covers it, as one `fused_frame` on the device (see the
+        module docstring); the right image is used where the layout has two
+        cameras."""
+        def dev(x):
+            return torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
+
+        self._pending_images.append((float(t), dev(img),
+                                     None if img_r is None else dev(img_r)))
         if self.initialized:
             self._process_pending_images()
 
     def _process_pending_images(self):
         op = self.opts
         while self._pending_images:
-            t, img = self._pending_images[0]
+            t, img, img_r = self._pending_images[0]
             if t <= self._time:
                 self._pending_images.popleft()
                 continue
@@ -223,16 +240,23 @@ class VioSystem:
                 if sel is None:
                     continue  # unservable frame
             it, iw, ia = (self._tensor(x)[None] for x in sel)
+            use_dyn = bool(op.dynamic_cloning)
+            do_clone, sigma_pix = True, max(op.cam.sigma_pix, 1e-3)
+            if use_dyn:
+                do_clone, sigma_pix = self._clone_policy(t, sigma_pix)
             # wheel window spans [newest existing clone, t] = fused_frame's
-            # preintegration interval (slot0 -> the new clone)
+            # preintegration interval (slot0 -> the new clone); with dynamic
+            # cloning it runs clone to clone, on clone frames only
+            wheel_pad = 2 * WHEEL_PAD if use_dyn else WHEEL_PAD
+            w_t0 = self._last_clone_t if use_dyn else self._last_frame_t
             wsel = None
-            if op.wheel.enabled and self._last_frame_t is not None:
-                wsel = self.wheel_buf.select(self._last_frame_t, t, pad_to=WHEEL_PAD)
+            if op.wheel.enabled and w_t0 is not None and do_clone:
+                wsel = self.wheel_buf.select(w_t0, t, pad_to=wheel_pad)
             if wsel is not None:
                 wt, wm1, wm2 = (self._tensor(x)[None] for x in wsel)
             else:
-                wt = self._tensor(np.full(WHEEL_PAD, t))[None]
-                wm1 = wm2 = torch.zeros((1, WHEEL_PAD), dtype=F64, device=self.device)
+                wt = self._tensor(np.full(wheel_pad, t))[None]
+                wm1 = wm2 = torch.zeros((1, wheel_pad), dtype=F64, device=self.device)
             wvalid = torch.tensor([wsel is not None], device=self.device)
             # GPS rows ride the joint update once the 4-DoF ENU init has
             # completed: pending fixes covered by this frame are consumed here
@@ -243,7 +267,8 @@ class VioSystem:
             if use_gps_fused and self.gps.pending:
                 pend = self.gps.pending
                 # a fix is consumable once a clone at/after it exists
-                take_idx = [i for i, f in enumerate(pend) if f[0] <= t][:GPS_PAD]
+                t_cov = t if do_clone or self._last_clone_t is None else self._last_clone_t
+                take_idx = [i for i, f in enumerate(pend) if f[0] <= t_cov][:GPS_PAD]
                 self.gps.pending = [f for i, f in enumerate(pend) if i not in take_idx]
                 for j, i in enumerate(take_idx):
                     gt[j] = pend[i][0]
@@ -255,7 +280,7 @@ class VioSystem:
                 self.state, self.track_state, img[None],
                 it, iw, ia, self._tensor([t]), wt, wm1, wm2, wvalid,
                 self.gravity, self.sigmas,
-                max(op.cam.sigma_pix, 1e-3), op.cam.chi2_mult,
+                sigma_pix, op.cam.chi2_mult,
                 op.cam.sigma_pix_line, (op.wheel.noise_w, op.wheel.noise_v, op.wheel.noise_p),
                 model=self.distortion_model, window_size=op.window_size,
                 cam_dtype=F64 if op.cam.fused_dtype == "f64" else F32,
@@ -268,7 +293,11 @@ class VioSystem:
                 gps_p=self._tensor(gp)[None],
                 gps_valid=torch.as_tensor(gv, device=self.device)[None],
                 sigma_gps=op.gps.noise if self.gps is not None else 3.0,
-                gps_chi2_mult=op.gps.chi2_mult if self.gps is not None else 1.0)
+                gps_chi2_mult=op.gps.chi2_mult if self.gps is not None else 1.0,
+                use_dynamic=use_dyn,
+                do_clone=torch.tensor([do_clone], device=self.device) if use_dyn else None,
+                use_stereo=img_r is not None and self.layout.n_cams >= 2,
+                img_r=None if img_r is None else img_r[None])
             # ONE host transfer: the frame's metrics, time and pose
             st = self.state
             host = torch.cat([m[k].to(F64) for k in _METRICS]
@@ -284,7 +313,9 @@ class VioSystem:
             self.stats["wheel_accept"] += wacc
             if wsel is not None and not wacc:
                 self.stats["wheel_reject"] += 1
-            self.stats["clones"] += 1
+            if do_clone:
+                self.stats["clones"] += 1
+                self._last_clone_t = t
             self.stats["updates"] += 1
             self._last_frame_t = t
             q, p = host[len(_METRICS) + 1:len(_METRICS) + 5], host[len(_METRICS) + 5:]
@@ -303,6 +334,26 @@ class VioSystem:
                 self.wheel_buf.prune(t - op.window_size - 0.5)
             host_ms = 1e3 * (time.perf_counter() - t_host0) - ms_frame
             self.frame_timing = {"frame": ms_frame, "host": host_ms, "gps": ms_gps}
+
+    def _clone_policy(self, t, sigma_pix):
+        """Dynamic cloning's host rate policy for a frame at t: whether a
+        clone lands here (the first frame, then once the rate chosen at the
+        last clone has elapsed; at a clone the rate is chosen anew from the
+        IMU's recent accelerations, at most opts.clone_freq), and the pixel
+        noise inflated by the interpolation error at the current rate.
+        Returns (do_clone, sigma_pix_eff)."""
+        op = self.opts
+        do_clone = self._next_clone_t is None or t >= self._next_clone_t - 1e-9
+        if do_clone:
+            b = self.imu_buf
+            ang_acc, lin_acc = dynclone.estimate_accelerations(b.t, b.w, b.a,
+                                                               gravity_mag=op.gravity_mag)
+            hz = dynclone.select_clone_rate(ang_acc, lin_acc, order=1, max_hz=float(op.clone_freq))
+            self._cur_accel = ang_acc + lin_acc
+            self._next_clone_t = t + 1.0 / hz - 1e-6
+            self._clone_hz = hz
+        interp_std = dynclone.interp_noise_std(self._cur_accel, self._clone_hz, 1)
+        return do_clone, float(np.sqrt(sigma_pix**2 + (self._fx * interp_std) ** 2))
 
     def feed_gps(self, t, lat, lon, alt):
         """One geodetic GNSS fix (reference: feed_measurement_gps,

@@ -164,7 +164,8 @@ def seed_state(sim, layout: StateLayout, t0: float) -> dict:
     as a dict of numpy arrays with the JAX FilterState's unbatched shapes;
     `FilterState.from_numpy([d] * B, layout, device)` batches it.  With a
     GPS block in the layout, its antenna lever arm is the simulator's
-    (as bench.py sets it)."""
+    (as bench.py sets it); with two cameras, camera 1 is the simulator's
+    right stereo camera."""
     c = sim.cfg
     st = make_state(layout, priors={"imu_th": 1e-3, "imu_p": 1e-5, "imu_v": 1e-2,
                                     "imu_bg": 1e-3, "imu_ba": 1e-2},
@@ -183,6 +184,10 @@ def seed_state(sim, layout: StateLayout, t0: float) -> dict:
     st["cam_k"][0] = c.intrinsics
     st["cam_q"][0] = c.cam_ext_q
     st["cam_p"][0] = c.cam_ext_p
+    if layout.n_cams >= 2:
+        st["cam_k"][1] = c.intrinsics
+        st["cam_q"][1] = c.cam_ext_q
+        st["cam_p"][1] = np.asarray(c.cam_ext_p) + [-c.stereo_baseline, 0.0, 0.0]
     if layout.n_gps > 0:
         st["gps_p"][0] = c.gps_ext_p
     return st
@@ -237,7 +242,7 @@ def lk_pair(sim, B: int, n_pts: int, t: float, gen: torch.Generator, dt: float =
 
 
 def frame_inputs(sim, B: int, n_frames: int, gen: torch.Generator, t0: float = 1.0,
-                 dt: float = 0.1, gps_pad: int = GPS_PAD):
+                 dt: float = 0.1, gps_pad: int = GPS_PAD, stereo: bool = False):
     """`fused_frame` inputs of n_frames frames at t0 + dt (i + 1) for B
     sequences on gen's device: per frame a dict with `t`, `img` (B,H,W)
     (`noisy_batch` noise), `imu` (t (B,32), w (B,32,3), a (B,32,3)),
@@ -246,13 +251,15 @@ def frame_inputs(sim, B: int, n_frames: int, gen: torch.Generator, t0: float = 1
     (t_prev, t], padded with the frame time.  The same IMU, wheel and GPS
     data for every sequence, drawn from the simulator's generator in
     bench.py's order: every GPS sample first, then per frame the image
-    and the wheel samples."""
+    and the wheel samples.  With stereo each frame also has `img_r`, the
+    right camera's image (rendered after the left one, its own noise)."""
     imu = sim.imu_stream()
     fixes = [(float(t), sim.gps_sample(t)) for t in sim.gps_times()] if gps_pad else []
     frames, t_prev = [], t0
     for i in range(n_frames):
         t = t0 + dt * (i + 1)
         img = noisy_batch(sim.render_frame(t), B, gen)
+        img_r = noisy_batch(sim.render_frame(t, cam=1), B, gen) if stereo else None
         win = imu_window(*imu, t_prev, t) + (np.full(1, t),) + wheel_window(sim, t_prev, t)
         if gps_pad:
             gt, gp, gv = np.full(gps_pad, t), np.zeros((gps_pad, 3)), np.zeros(gps_pad, bool)
@@ -262,6 +269,8 @@ def frame_inputs(sim, B: int, n_frames: int, gen: torch.Generator, t0: float = 1
         per = [torch.as_tensor(a, device=gen.device).expand((B,) + a.shape).contiguous()
                for a in win]
         frames.append(dict(t=t, img=img, imu=per[:3], t_new=per[3][:, 0], wheel=per[4:7]))
+        if stereo:
+            frames[-1]["img_r"] = img_r
         if gps_pad:
             frames[-1]["gps"] = per[7:]
         t_prev = t
@@ -310,7 +319,8 @@ def closed_loop(sim, B: int, n_frames: int, gen: torch.Generator):
 
 
 # ---------------------------------------------------------------------------
-# the live driver's scenarios (tests/test_feed_image.py, tests/test_gps_fused.py)
+# the live driver's scenarios (tests/test_feed_image.py, tests/test_gps_fused.py,
+# tests/test_dynamic_fused.py, tests/test_stereo_fused.py)
 # ---------------------------------------------------------------------------
 
 def live_options(opts, gps: bool = False):
@@ -337,13 +347,38 @@ def live_options(opts, gps: bool = False):
     return opts
 
 
+def dynamic_options(opts):
+    """tests/test_dynamic_fused.py's options: `live_options`' points, lines
+    (16 slots) and wheel, with dynamic cloning capped at the 10 Hz camera
+    rate.  Returns opts."""
+    live_options(opts)
+    opts.cam.max_lines = 16
+    opts.dynamic_cloning = True
+    opts.clone_freq = 10
+    return opts
+
+
+def stereo_options(opts, stereo: bool = True):
+    """tests/test_stereo_fused.py's options: `live_options`' points and
+    wheel without lines, two cameras (one for its mono run).  Returns
+    opts."""
+    live_options(opts)
+    opts.cam.use_lines = False
+    opts.cam.max_n = 2 if stereo else 1
+    return opts
+
+
 def live_calibrate(system, sim, t0: float):
-    """Install the simulator's camera, wheel and (with GPS) antenna
-    calibration into the port's VioSystem and seed it from ground truth at
-    t0, as the live-driver tests do."""
+    """Install the simulator's camera (both stereo cameras where the layout
+    has two), wheel and (with GPS) antenna calibration into a VioSystem and
+    seed it from ground truth at t0, as the live-driver tests do.  Works
+    with the port's VioSystem and, without GPS, the JAX package's."""
     c = sim.cfg
     system.set_calibration(np.asarray(c.intrinsics), np.asarray(c.cam_ext_q),
                            np.asarray(c.cam_ext_p))
+    if system.layout.n_cams >= 2:
+        system.set_calibration(np.asarray(c.intrinsics), np.asarray(c.cam_ext_q),
+                               np.asarray(c.cam_ext_p) + [-c.stereo_baseline, 0.0, 0.0], cam=1)
     system.set_wheel_calibration(np.asarray(c.wheel_ext_q), np.asarray(c.wheel_ext_p),
                                  [c.wheel_rl, c.wheel_rr, c.wheel_base])
     if system.gps is not None:
@@ -354,15 +389,17 @@ def live_calibrate(system, sim, t0: float):
                            sim.bg_true[i0], sim.ba_true[i0])
 
 
-def live_events(sim, t0: float, n_frames: int, enu=None):
+def live_events(sim, t0: float, n_frames: int, enu=None, stereo: bool = False):
     """The sensor stream of the live-driver tests' loop, in their order:
     frames at t0 + 0.1 (i + 1); per IMU sample the GPS fixes, wheel samples
     and frames due by then, then the sample itself; it ends with the IMU
     sample that covers the last frame.  With enu = (R, t) the simulator's
     fixes after t0 arrive in an ENU frame p_E = R p + t, all drawn first,
-    as tests/test_gps_fused.py draws them.  Works with the port's simulator
-    and the JAX package's.  Returns [(kind, args)] with kind in "gps",
-    "wheel", "image", "imu": the arguments of VioSystem.feed_gps_enu,
+    as tests/test_gps_fused.py draws them; with stereo each frame also
+    carries the right camera's image (rendered after the left, as
+    tests/test_stereo_fused.py renders them).  Works with the port's
+    simulator and the JAX package's.  Returns [(kind, args)] with kind in
+    "gps", "wheel", "image", "imu": the arguments of VioSystem.feed_gps_enu,
     feed_wheel, feed_image and feed_imu."""
     imu_t, imu_w, imu_a = sim.imu_stream()
     wheel_ts = sim.wheel_times()
@@ -383,7 +420,10 @@ def live_events(sim, t0: float, n_frames: int, enu=None):
             events.append(("wheel", (float(wheel_ts[wi]), float(m1), float(m2))))
             wi += 1
         while ci < len(cam_ts) and cam_ts[ci] <= t:
-            events.append(("image", (cam_ts[ci], np.asarray(sim.render_frame(cam_ts[ci])))))
+            tc = cam_ts[ci]
+            img = (tc, np.asarray(sim.render_frame(tc)))
+            events.append(("image", img + ((np.asarray(sim.render_frame(tc, cam=1)),)
+                                           if stereo else ())))
             ci += 1
         events.append(("imu", (float(t), imu_w[i], imu_a[i])))
         if ci >= len(cam_ts):

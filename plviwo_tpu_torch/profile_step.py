@@ -1,14 +1,17 @@
 """Profile the batch-first fused step, or the images-in frame, on one CUDA card.
 
     python -m plviwo_tpu_torch.profile_step [--batch 128] [--steps 5]
-    python -m plviwo_tpu_torch.profile_step --frame [--batch 64] [--steps 5]
+    python -m plviwo_tpu_torch.profile_step --frame [--stereo | --dynamic] [--batch 64] [--steps 5]
 
 The filter step runs at the filter bench's width (22 clones, 40 point
 tracks x 20 obs, 16 line tracks, 32 IMU / 32 wheel samples); `--frame` runs
 `core.frame.fused_frame` as bench.py's images-in unit (640 x 480, 128
 point slots x 8 obs, 24 line slots, 14 clones with wheel and one GPS block,
-up to 4 GPS fixes a frame, the port's simulator, after 6 warm-up frames).
-It prints:
+up to 4 GPS fixes a frame, the port's simulator, after 6 warm-up frames);
+with `--stereo` a right image per sequence and two cameras (the L->R LK
+pass and the stereo point rows timed as stages), with `--dynamic`
+sequence b cloning on frames where (frame + b) is even (the masked clone
+and the interpolated point rows timed as stages).  It prints:
   - host syncs that torch reports during one step (sync debug mode);
   - the wall time of a step, and its device time from CUDA events;
   - a per-stage breakdown: each stage, called in the same order, timed
@@ -96,9 +99,10 @@ FRAME_KW = dict(model=0, window_size=1.0, cam_dtype=torch.float32, min_track=4,
 FRAME_CONSTS = (1.5, 8.0, 2.0, (0.05, 0.05, 0.02))  # sigma_pix, chi2_mult, sigma_line, wheel noise
 
 
-def _frame_setup(B, n_frames, dev):
+def _frame_setup(B, n_frames, dev, mode=None):
     """Simulator frames and a GT-seeded (state, track state) of bench.py's
-    images-in unit."""
+    images-in unit; mode "stereo" adds right images and a second camera,
+    "dynamic" each frame's per-sequence `do_clone`."""
     from .core import frame
     from .core.layout import StateLayout
     from .core.state import FilterState
@@ -106,8 +110,11 @@ def _frame_setup(B, n_frames, dev):
     from .sim.simulator import Simulator
 
     sim = Simulator(SimConfig(duration=6.0, n_landmarks=350, n_lines=40, seed=3))
-    frames = frame_inputs(sim, B, n_frames, torch.Generator(device=dev).manual_seed(7))
-    layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True, n_gps=1)
+    frames = frame_inputs(sim, B, n_frames, torch.Generator(device=dev).manual_seed(7),
+                          stereo=mode == "stereo")
+    for i, f in enumerate(frames):
+        f["do_clone"] = (torch.arange(B, device=dev) + i) % 2 == 0
+    layout = StateLayout(n_clones=14, n_cams=1 + (mode == "stereo"), use_wheel=True, n_gps=1)
     state = FilterState.from_numpy([seed_state(sim, layout, 1.0)] * B, layout, dev)
     ts = frame.make_track_state(480, 640, 128, 24, 8, batch=B, device=dev)
     c = sim.cfg
@@ -116,15 +123,19 @@ def _frame_setup(B, n_frames, dev):
     return frames, state, ts, consts
 
 
-def _frame_args(f, consts):
-    """(positional arguments, GPS keyword arguments) of one frame."""
+def _frame_args(f, consts, mode=None):
+    """(positional arguments, keyword arguments: GPS and mode) of one frame."""
     B = f["img"].shape[0]
-    gps = dict(zip(("gps_t", "gps_p", "gps_valid"), f["gps"]))
+    kw = dict(zip(("gps_t", "gps_p", "gps_valid"), f["gps"]))
+    if mode == "stereo":
+        kw.update(use_stereo=True, img_r=f["img_r"])
+    elif mode == "dynamic":
+        kw.update(use_dynamic=True, do_clone=f["do_clone"])
     return (f["img"], *f["imu"], f["t_new"], *f["wheel"],
-            torch.ones(B, dtype=torch.bool, device=f["img"].device), *consts), gps
+            torch.ones(B, dtype=torch.bool, device=f["img"].device), *consts), kw
 
 
-def _frame_stage_times(state, ts, f, consts):
+def _frame_stage_times(state, ts, f, consts, mode=None):
     """Device-synchronized wall time of each stage of fused_frame; the
     front-end stages are timed alone and then `track_frame` whole."""
     from .core import ekf, frame, propagator, step
@@ -145,7 +156,11 @@ def _frame_stage_times(state, ts, f, consts):
         state = ekf.augment_clone(state)
         return state, s0, newest_clone_slot(state)
 
+    state0 = state
     state, slot0, slot1 = timed("marginalize+clone", lambda: clone(state))
+    if mode == "dynamic":
+        state = timed("clone mask (select per field)", lambda: frame._select(
+            f["do_clone"], state, state0))
     pyr = timed("equalize+pyramid", lambda: image.build_pyramid(
         image.hist_equalize_quantile(f["img"]), 3))
     uv, ok = timed("LK (kernel)", lambda: lk_kernel.pyramidal_lk(
@@ -158,6 +173,14 @@ def _frame_stage_times(state, ts, f, consts):
     ok = ok & torch.where(torch.sum(ok, dim=-1, keepdim=True) >= 12, inl, ok)
     alive = ts.valid & ok & ts.has_prev[:, None]
     uv_cur = torch.where(alive[..., None], uv, ts.uv)
+    if mode == "stereo":
+        pyr_r = timed("right equalize+pyramid", lambda: image.build_pyramid(
+            image.hist_equalize_quantile(f["img_r"]), 3))
+        uv_r, ok_r = timed("L->R LK (kernel)", lambda: lk_kernel.pyramidal_lk(
+            pyr, pyr_r, uv_cur, alive, 3, 7, 6))
+        timed("right undistort+append", lambda: frame._append_r(
+            ts.hist_uv_r, ts.hist_uvn_r, ts.hist_rvalid, ts.n_obs, alive, uv_r,
+            cam.undistort(uv_r.double(), state.cam_k[:, 1:2], 0), ok_r))
     det_uv, det_ok = timed("detect_grid", lambda: klt.detect_grid(
         pyr[0], uv_cur, alive, 16, 12, N, min_px_dist=10.0))
     take, filled = frame._fill_free_slots(~alive, det_ok)
@@ -170,16 +193,28 @@ def _frame_stage_times(state, ts, f, consts):
     lseg_n = cam.undistort(ls.lseg_all.reshape(-1, 2 * Lm, 2).double(), kb, 0).reshape(-1, Lm, 4)
     timed("line histories", lambda: frame._line_histories(
         ts, ls, lseg_n, uv_all, valid_all, f["t_new"], slot1))
+    stereo = dict(img_r=f["img_r"], cam_k_r=state.cam_k[:, 1]) if mode == "stereo" else {}
     ts, harvest, lharvest = timed("track_frame (all front-end)", lambda: frame.track_frame(
-        ts, f["img"], state.cam_k[:, 0], f["t_new"], slot1))
-    p_uv, p_uvn, p_slot, p_mask, p_t = harvest
-    p_mask = frame._liveness(state, p_slot, p_t, p_mask)
+        ts, f["img"], state.cam_k[:, 0], f["t_new"], slot1, **stereo))
+    p_uv, p_uvn, p_slot, p_mask, p_t = harvest[:5]
+    if mode != "dynamic":
+        p_mask = frame._liveness(state, p_slot, p_t, p_mask)
     p_mask = p_mask & (torch.sum(p_mask, dim=-1, keepdim=True) >= 3)
     l_uv, l_uvn, l_slot, l_mask, l_t = lharvest
     l_mask = frame._liveness(state, l_slot, l_t, l_mask)
     l_mask = l_mask & (torch.sum(l_mask, dim=-1, keepdim=True) >= 3)
-    G1, c1, _ = timed("point rows (incl. kernel)", lambda: step._camera_msckf_rows(
-        state, p_uv, p_uvn, p_slot, p_mask, sigma_pix, chi2_mult, 0, f32))
+    if mode == "stereo":
+        G1, c1, _ = timed("stereo point rows (incl. kernel)",
+                          lambda: step._camera_msckf_rows_stereo(
+                              state, p_uv, p_uvn, p_slot, p_mask, harvest[5], harvest[6],
+                              harvest[7] & p_mask, sigma_pix, chi2_mult, 0, f32))
+    elif mode == "dynamic":
+        G1, c1, _ = timed("interpolated point rows (incl. kernel)",
+                          lambda: step._camera_msckf_rows_interp(
+                              state, p_uv, p_uvn, p_t, p_mask, sigma_pix, chi2_mult, 0, f32))
+    else:
+        G1, c1, _ = timed("point rows (incl. kernel)", lambda: step._camera_msckf_rows(
+            state, p_uv, p_uvn, p_slot, p_mask, sigma_pix, chi2_mult, 0, f32))
     G2, c2, _ = timed("line rows (incl. kernel)", lambda: step._line_msckf_rows(
         state, l_uv.double(), l_uvn.double(), l_slot, l_mask, sigma_line, chi2_mult, f32))
 
@@ -211,7 +246,14 @@ def main(argv=None) -> int:
     ap.add_argument("--frame", action="store_true", help="profile the images-in frame")
     ap.add_argument("--batch", type=int, default=None, help="sequences (128; 64 with --frame)")
     ap.add_argument("--steps", type=int, default=5)
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--stereo", action="store_true",
+                      help="with --frame: a right image per sequence, two cameras")
+    mode.add_argument("--dynamic", action="store_true",
+                      help="with --frame: dynamic cloning, sequence b cloning where "
+                           "(frame + b) is even")
     a = ap.parse_args(argv)
+    mode = "stereo" if a.stereo else "dynamic" if a.dynamic else None
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     from .core.frame import fused_frame
@@ -222,19 +264,19 @@ def main(argv=None) -> int:
     if a.frame:
         B = a.batch or 64
         n_warm = 6
-        frames, state, ts, consts = _frame_setup(B, n_warm + 3 * a.steps + 2, dev)
+        frames, state, ts, consts = _frame_setup(B, n_warm + 3 * a.steps + 2, dev, mode)
         it = iter(frames)
 
         def step(s):
-            args, gps = _frame_args(next(it), consts)
-            return fused_frame(*s, *args, **gps, **FRAME_KW)[:2]
+            args, kw = _frame_args(next(it), consts, mode)
+            return fused_frame(*s, *args, **kw, **FRAME_KW)[:2]
 
         s = (state, ts)
         for _ in range(n_warm):
             s = step(s)
 
         def stages(s):
-            return _frame_stage_times(s[0], s[1], next(it), consts)
+            return _frame_stage_times(s[0], s[1], next(it), consts, mode)
     else:
         B = a.batch or 128
         state, per_frame, consts = _inputs(B, dev)

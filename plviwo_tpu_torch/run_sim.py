@@ -6,6 +6,8 @@ device the run used).  Exit code 0 iff the ATE is finite and under 5 m.
 
 Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --gps --out traj.txt
+    python -m plviwo_tpu_torch.run_sim --images --wheel --stereo
+    python -m plviwo_tpu_torch.run_sim --images --lines --wheel --dynamic --clone-freq 10
 
 Options of the JAX driver that the port does not run yet exit non-zero
 naming their ROADMAP queue.
@@ -21,13 +23,12 @@ import time
 
 # JAX driver options not ported yet -> the ROADMAP queue that owns them
 _NOT_PORTED = {
-    "stereo": "A8 (stereo)", "dynamic": "A8 (dynamic cloning)",
-    "intr_order": "A8 (dynamic cloning)", "tags": "A9 (ArUco tags)",
+    "intr_order": "A9 (polynomial interpolation, the per-track path)", "tags": "A9 (ArUco tags)",
     "host_tracker": "A9 (host trackers)", "auto_init": "A9 (auto-initialization)",
     "imu_res": "A9 (CPI interpolated poses)", "calib": "A9 (online calibration)",
     "plc": "A9 (point-line-coupled rows)", "sequential_update": "A9 (per-sensor updates)",
     "max_msckf": "A9 (the per-track MSCKF update)", "perturb": "A9 (online calibration)",
-    "clone_freq": "A8 (dynamic cloning)", "viz_dir": "A10 (utils/viz)",
+    "viz_dir": "A10 (utils/viz)",
     "record": "A10 (utils/recorder)",
 }
 
@@ -54,11 +55,17 @@ def _parser():
     ap.add_argument("--max-obs", type=int, default=None,
                     help="observation-history depth per tracker slot")
     ap.add_argument("--out", type=str, default=None, help="TUM trajectory output path")
-    for flag in ("stereo", "dynamic", "tags", "host_tracker", "auto_init", "imu_res", "calib",
-                 "plc", "sequential_update"):
+    ap.add_argument("--stereo", action="store_true",
+                    help="stereo: a right image per frame (L->R association, two cameras)")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="dynamic cloning: adaptive clone rate, interpolated-pose point rows")
+    ap.add_argument("--clone-freq", type=int, default=None,
+                    help="max clone rate [Hz] (with --dynamic this caps the adaptive rate)")
+    for flag in ("tags", "host_tracker", "auto_init", "imu_res", "calib", "plc",
+                 "sequential_update"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
-    for flag in ("intr_order", "max_msckf", "perturb", "clone_freq", "viz_dir", "record"):
+    for flag in ("intr_order", "max_msckf", "perturb", "viz_dir", "record"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
     return ap
@@ -89,9 +96,15 @@ def main(argv=None):
     sim = Simulator(cfg)
 
     opts = EstimatorOptions()
+    opts.dynamic_cloning = args.dynamic
+    if args.clone_freq is not None:
+        opts.clone_freq = args.clone_freq
     opts.cam.sigma_pix = max(args.sigma_pix, 0.3)
     opts.cam.min_track_length = 4
     opts.cam.chi2_mult = 5.0
+    if args.stereo:
+        opts.cam.max_n = 2
+        opts.cam.min_track_length = 6  # stereo tracks gain 2 obs per frame
     if args.lines:
         opts.cam.use_lines = True
         opts.cam.max_lines = 20
@@ -123,6 +136,9 @@ def main(argv=None):
 
     sys_ = VioSystem(opts, device=args.device)
     sys_.set_calibration(cfg.intrinsics, cfg.cam_ext_q, cfg.cam_ext_p)
+    if args.stereo:
+        sys_.set_calibration(cfg.intrinsics, cfg.cam_ext_q,
+                             np.asarray(cfg.cam_ext_p) + [-cfg.stereo_baseline, 0.0, 0.0], cam=1)
     if args.wheel:
         sys_.set_wheel_calibration(cfg.wheel_ext_q, cfg.wheel_ext_p,
                                    [cfg.wheel_rl, cfg.wheel_rr, cfg.wheel_base])
@@ -140,6 +156,8 @@ def main(argv=None):
     # the generator's draws in the JAX driver's order: every frame, then
     # the wheel samples, then the GPS fixes (identity world->ENU)
     cam_iter = iter([(float(t), sim.render_frame(t, with_lines=args.lines))
+                     + ((sim.render_frame(t, with_lines=args.lines, cam=1),) if args.stereo
+                        else ())
                      for t in sim.cam_times()])
     next_cam = next(cam_iter, None)
     wheel_iter = iter([(float(t),) + sim.wheel_sample(t) for t in sim.wheel_times()]

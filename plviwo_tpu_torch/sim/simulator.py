@@ -181,12 +181,14 @@ class Simulator:
         seg += self.rng.normal(0, c.sigma_pix_line, seg.shape)
         return ids.astype(np.int64), seg
 
-    def render_frame(self, t, with_lines=True):
-        """Render a synthetic grayscale image (H, W) float32 in [0, 1] of
-        the (left) camera: Gaussian blobs at the landmarks, dark strokes
-        along the 3-D lines (with_lines: their noisy endpoints draw from the
-        generator, as in the JAX package), over a ray-cast textured ground
-        plane."""
+    def render_frame(self, t, with_lines=True, cam: int = 0):
+        """Render a synthetic grayscale image (H, W) float32 in [0, 1]:
+        Gaussian blobs at the landmarks, dark strokes along the 3-D lines
+        (with_lines: their noisy endpoints draw from the generator, as in
+        the JAX package), over a ray-cast textured ground plane.  cam=1
+        renders the right stereo camera, stereo_baseline along camera x
+        (its line strokes are the left camera's, as the JAX package draws
+        them)."""
         c = self.cfg
         H, W = c.height, c.width
         if not hasattr(self, "_ground_tex"):
@@ -206,6 +208,8 @@ class Simulator:
         kin = self.spline.imu_true(t)
         R_GtoI, p_I = kin["R_GtoI"], kin["p_IinG"]
         p_cam_ext = np.asarray(c.cam_ext_p)
+        if cam == 1:
+            p_cam_ext = p_cam_ext + np.array([-c.stereo_baseline, 0.0, 0.0])
         R_GtoC = _rot(c.cam_ext_q) @ R_GtoI
         cam_center = p_I - R_GtoC.T @ p_cam_ext
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.interp import interpolate_pose_linear, interpolate_rotation_jacobian
 from ..ops import cam as cam_ops
 from ..ops import lie
 from ..ops.jac import jacfwd_batched
@@ -56,10 +57,12 @@ def triangulate_batch(obs_uvn, obs_q, obs_p, obs_valid, cam_q, cam_p,
                       gn_iters: int = 5):
     """Batched linear triangulation + fixed-iteration Gauss-Newton refine.
 
-    obs_uvn (B,F,O,2), obs_q (B,F,O,4), obs_p (B,F,O,3), obs_valid (B,F,O),
-    cam_q (B,4), cam_p (B,3).  Returns p_f (B,F,3), ok (B,F), avg_err (B,F)."""
-    cq = cam_q[:, None, None, :]
-    cp = cam_p[:, None, None, :]
+    obs_uvn (B,F,O,2), obs_q (B,F,O,4), obs_p (B,F,O,3), obs_valid (B,F,O);
+    the camera extrinsics cam_q, cam_p either one per sequence, (B,4) and
+    (B,3), or one per observation, (B,F,O,4) and (B,F,O,3) (stereo).
+    Returns p_f (B,F,3), ok (B,F), avg_err (B,F)."""
+    cq = cam_q if cam_q.ndim == 4 else cam_q[:, None, None, :]
+    cp = cam_p if cam_p.ndim == 4 else cam_p[:, None, None, :]
     R_GtoC, c = _cam_pose_in_g(obs_q, obs_p, cq, cp)
     b_C = torch.cat([obs_uvn, torch.ones_like(obs_uvn[..., :1])], dim=-1)
     b_C = b_C / torch.linalg.vector_norm(b_C, dim=-1, keepdim=True)
@@ -109,30 +112,48 @@ def triangulate_batch(obs_uvn, obs_q, obs_p, obs_valid, cam_q, cam_p,
     return p_f, ok, avg_err
 
 
-def _scatter_clone_band(block, slot, n_clones, clone_off, D):
+def _scatter_clone_band(block, slot, n_clones, clone_off, D, block1=None, slot1=None):
     """Place per-observation clone Jacobian blocks (...,R,6) at their slot's
-    columns of a zero (...,R,D) row stack (one-hot over the clone ring)."""
-    onehot = one_hot(slot, n_clones, block.dtype)  # (...,C)
-    Hc = (onehot[..., None, :, None] * block[..., :, None, :]).flatten(-2)  # (...,R,6C)
+    columns of a zero (...,R,D) row stack (one-hot over the clone ring).
+    With block1 and slot1 a second block is placed the same way and the two
+    are summed (an interpolated pose's two bounding clones; they add up
+    where the slots coincide)."""
+    def band(b, s):  # (...,R,C,6)
+        return one_hot(s, n_clones, b.dtype)[..., None, :, None] * b[..., :, None, :]
+
+    Hc = band(block, slot) if block1 is None else band(block, slot) + band(block1, slot1)
+    Hc = Hc.flatten(-2)  # (...,R,6C)
     pre = block.new_zeros(Hc.shape[:-1] + (clone_off,))
     post = block.new_zeros(Hc.shape[:-1] + (D - clone_off - 6 * n_clones,))
     return torch.cat([pre, Hc, post], dim=-1)
 
 
-def point_systems_batch(p_f, obs_uv, obs_slot, obs_valid,
-                        clone_q, clone_p, clone_q_fej, clone_p_fej,
-                        cam_q, cam_p, cam_k, model: int, n_clones: int,
-                        clone_off: int, D: int):
-    """Per-feature MSCKF linear systems (port of `_point_system_single`
-    mapped over features).  p_f (B,F,3), obs_uv (B,F,O,2), obs_slot/valid
-    (B,F,O), clone rings (B,C,.), cam_q (B,4), cam_p (B,3), cam_k (B,8).
-    Returns Hx (B,F,2O,D), Hf (B,F,2O,3), r (B,F,2O), rowmask (B,F,2O)."""
-    B, F, O = obs_slot.shape
-    R_ItoC = lie.quat_2_rot(cam_q)[:, None, None]  # (B,1,1,3,3)
-    cp = cam_p[:, None, None, :]
-    ck = cam_k[:, None, None, :]
-    pf = p_f[:, :, None, :]
+def _dzn_dpc(p_C, z):
+    """d(zn)/d(p_C) (...,2,3) of zn = p_C[:2] / z."""
+    x, y = p_C[..., 0], p_C[..., 1]
+    zero = torch.zeros_like(z)
+    return torch.stack([
+        torch.stack([1.0 / z, zero, -x / z**2], -1),
+        torch.stack([zero, 1.0 / z, -y / z**2], -1),
+    ], -2)
 
+
+def _duv_dzn(zn, ck, model):
+    """d(pixel)/d(zn) (...,2,2) only: cam_ops.distort_jacobian would also
+    take the intrinsics Jacobian, which the rows without calibration do
+    not use."""
+    (duv_dzn,) = jacfwd_batched(
+        cam_ops.distort_radtan if model == cam_ops.RADTAN else cam_ops.distort_equi,
+        (zn, ck), (0,))
+    return duv_dzn
+
+
+def _point_systems(p_f, obs_uv, obs_slot, obs_valid, clone_q, clone_p, clone_q_fej,
+                   clone_p_fej, R_ItoC, cp, ck, model, n_clones, clone_off, D):
+    """`point_systems_batch` with the camera's R_ItoC (...,3,3), p_IinC
+    (...,3) and intrinsics (...,8) broadcast against (B,F,O)."""
+    B, F, O = obs_slot.shape
+    pf = p_f[:, :, None, :]
     q_cl, p_cl = gather_slots(clone_q, obs_slot), gather_slots(clone_p, obs_slot)
     q_fe, p_fe = gather_slots(clone_q_fej, obs_slot), gather_slots(clone_p_fej, obs_slot)
 
@@ -147,18 +168,7 @@ def point_systems_batch(p_f, obs_uv, obs_slot, obs_valid,
     R_GtoC_f = R_ItoC @ R_GtoI_f
     p_C_f = _mv(R_GtoC_f, pf - p_fe) + cp
     z_f = torch.clamp(p_C_f[..., 2], min=1e-6)
-    x_f, y_f = p_C_f[..., 0], p_C_f[..., 1]
-    zero = torch.zeros_like(z_f)
-    dzn_dpC = torch.stack([
-        torch.stack([1.0 / z_f, zero, -x_f / z_f**2], -1),
-        torch.stack([zero, 1.0 / z_f, -y_f / z_f**2], -1),
-    ], -2)  # (B,F,O,2,3)
-    # d(pixel)/d(zn) only: cam_ops.distort_jacobian would also take the
-    # intrinsics Jacobian, which the rows without calibration do not use
-    (duv_dzn,) = jacfwd_batched(
-        cam_ops.distort_radtan if model == cam_ops.RADTAN else cam_ops.distort_equi,
-        (p_C_f[..., :2] / z_f[..., None], ck), (0,))
-    dpix = duv_dzn @ dzn_dpC
+    dpix = _duv_dzn(p_C_f[..., :2] / z_f[..., None], ck, model) @ _dzn_dpc(p_C_f, z_f)
 
     pf_in_I = _mv(R_GtoI_f, pf - p_fe)
     H_th = dpix @ (R_ItoC @ lie.skew(pf_in_I))
@@ -167,6 +177,86 @@ def point_systems_batch(p_f, obs_uv, obs_slot, obs_valid,
 
     block = torch.cat([H_th, H_p], dim=-1)  # (B,F,O,2,6)
     Hx = _scatter_clone_band(block, obs_slot, n_clones, clone_off, D)
+    rowmask = repeat_each(obs_valid, 2)
+    return (Hx.reshape(B, F, 2 * O, D), Hf.reshape(B, F, 2 * O, 3), r, rowmask)
+
+
+def point_systems_batch(p_f, obs_uv, obs_slot, obs_valid,
+                        clone_q, clone_p, clone_q_fej, clone_p_fej,
+                        cam_q, cam_p, cam_k, model: int, n_clones: int,
+                        clone_off: int, D: int):
+    """Per-feature MSCKF linear systems (port of `_point_system_single`
+    mapped over features).  p_f (B,F,3), obs_uv (B,F,O,2), obs_slot/valid
+    (B,F,O), clone rings (B,C,.), cam_q (B,4), cam_p (B,3), cam_k (B,8).
+    Returns Hx (B,F,2O,D), Hf (B,F,2O,3), r (B,F,2O), rowmask (B,F,2O)."""
+    R_ItoC = lie.quat_2_rot(cam_q)[:, None, None]  # (B,1,1,3,3)
+    return _point_systems(p_f, obs_uv, obs_slot, obs_valid, clone_q, clone_p, clone_q_fej,
+                          clone_p_fej, R_ItoC, cam_p[:, None, None, :], cam_k[:, None, None, :],
+                          model, n_clones, clone_off, D)
+
+
+def point_systems_batch_multicam(p_f, obs_uv, obs_slot, obs_cam, obs_valid,
+                                 clone_q, clone_p, clone_q_fej, clone_p_fej,
+                                 cam_q_all, cam_p_all, cam_k_all, model: int, n_clones: int,
+                                 clone_off: int, D: int):
+    """`point_systems_batch` with a camera index per observation (port of
+    `_point_system_single_multicam`, the stereo frame's row builder): obs_cam
+    (B,F,O) int indexes cam_q_all (B,n_cams,4), cam_p_all (B,n_cams,3) and
+    cam_k_all (B,n_cams,8).  Same returns."""
+    cq, cp, ck = (gather_slots(a, obs_cam) for a in (cam_q_all, cam_p_all, cam_k_all))
+    return _point_systems(p_f, obs_uv, obs_slot, obs_valid, clone_q, clone_p, clone_q_fej,
+                          clone_p_fej, lie.quat_2_rot(cq), cp, ck, model, n_clones, clone_off, D)
+
+
+def point_systems_interp_batch(p_f, obs_uv, obs_slot0, obs_slot1, obs_lam, obs_valid,
+                               clone_q, clone_p, clone_q_fej, clone_p_fej,
+                               cam_q, cam_p, cam_k, model: int, n_clones: int,
+                               clone_off: int, D: int):
+    """Per-feature MSCKF systems at interpolated poses (port of
+    `_point_system_interp_single` mapped over features): each observation
+    is bracketed by clone slots obs_slot0 <= obs_slot1 in time with
+    fraction obs_lam (B,F,O), its pose is `interpolate_pose_linear` between
+    them, and its clone Jacobian spreads over both: the projection's
+    d(pixel)/d(p_C) chained through `interpolate_rotation_jacobian` (closed
+    form; the JAX package uses `jax.jacfwd`), at the FEJ clones.  The other
+    arguments and the returns are `point_systems_batch`'s."""
+    B, F, O = obs_slot0.shape
+    R_ItoC = lie.quat_2_rot(cam_q)[:, None, None]
+    cp, ck = cam_p[:, None, None, :], cam_k[:, None, None, :]
+    pf = p_f[:, :, None, :]
+
+    def at(ring, slot):
+        return gather_slots(ring, slot)
+
+    # residual at the interpolated estimates
+    R_t, p_t = interpolate_pose_linear(at(clone_q, obs_slot0), at(clone_p, obs_slot0),
+                                       at(clone_q, obs_slot1), at(clone_p, obs_slot1), obs_lam)
+    p_C = _mv(R_ItoC, _mv(R_t, pf - p_t)) + cp
+    z = torch.clamp(p_C[..., 2], min=1e-6)
+    r = (obs_uv - cam_ops.distort(p_C[..., :2] / z[..., None], ck, model)).reshape(B, F, 2 * O)
+
+    # Jacobians at the interpolated FEJ pose
+    R_f, J0, J1 = interpolate_rotation_jacobian(at(clone_q_fej, obs_slot0),
+                                                at(clone_q_fej, obs_slot1), obs_lam)
+    lam = obs_lam[..., None, None]
+    p_f_t = (1.0 - lam[..., 0]) * at(clone_p_fej, obs_slot0) + lam[..., 0] * at(clone_p_fej,
+                                                                              obs_slot1)
+    pf_in_I = _mv(R_f, pf - p_f_t)
+    R_GtoC_f = R_ItoC @ R_f
+    p_C_f = _mv(R_ItoC, pf_in_I) + cp
+    z_f = torch.clamp(p_C_f[..., 2], min=1e-6)
+    dzn = _dzn_dpc(p_C_f, z_f)
+    # jax.jacfwd through the depth clamp: no depth derivative below it
+    dzn = dzn * torch.stack([torch.ones_like(z_f), torch.ones_like(z_f),
+                             (p_C_f[..., 2] > 1e-6).to(z_f.dtype)], -1)[..., None, :]
+    dpix = _duv_dzn(p_C_f[..., :2] / z_f[..., None], ck, model) @ dzn
+    # d(pixel)/d(psi) with R(lam)' = exp(psi) R(lam); d(pixel)/d(p(lam))
+    H_psi = dpix @ (R_ItoC @ -lie.skew(pf_in_I))
+    H_p = dpix @ (-R_GtoC_f)
+    block0 = torch.cat([H_psi @ J0, (1.0 - lam) * H_p], dim=-1)  # (B,F,O,2,6)
+    block1 = torch.cat([H_psi @ J1, lam * H_p], dim=-1)
+    Hx = _scatter_clone_band(block0, obs_slot0, n_clones, clone_off, D, block1, obs_slot1)
+    Hf = dpix @ R_GtoC_f
     rowmask = repeat_each(obs_valid, 2)
     return (Hx.reshape(B, F, 2 * O, D), Hf.reshape(B, F, 2 * O, 3), r, rowmask)
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core import ekf
-from ..core.interp import interpolate_pose_linear
+from ..core.interp import interpolate_pose_linear, interpolate_rotation_jacobian
 from ..ops import lie
 
 F64 = torch.float64
@@ -214,28 +214,18 @@ def transform_state_to_enu_marg_trans(state):
                        cov=0.5 * (cov + cov.transpose(-1, -2)))
 
 
-def _antenna_jacobian(q0, p0, q1, p1, lam, ext_p):
+def _antenna_jacobian(q0, q1, lam, ext_p):
     """d(antenna)/d[dx0, dx1] (...,3,12) of the antenna p(lam) + R(lam)^T ext_p
     at the pose interpolated between two clones, each perturbed by a JPL
-    error state dx = [dtheta, dp] (R' = (I - [dtheta]x) R, p' = p + dp).
-
-    With w = log(R1 R0^T) and E = exp(lam w), a left perturbation psi of
-    R(lam) moves the antenna by R(lam)^T [ext_p]x psi, and
-      psi = (lam Jl(lam w) Jr^-1(w) - E) dtheta0 - lam Jl(lam w) Jl^-1(w) dtheta1
-    (Jr^-1(w) = Jl^-1(w)^T); the position block is (1 - lam) I, lam I.  The
-    JAX package takes the same Jacobian by `jax.jacfwd`; this closed form is
-    a few dozen operators instead of a forward-mode pass through log and
-    exp."""
-    R0 = lie.quat_2_rot(q0)
-    w = lie.log_so3(lie.quat_2_rot(q1) @ R0.transpose(-1, -2))
-    lw = lam[..., None] * w
-    E = lie.exp_so3(lw)
-    A = (E @ R0).transpose(-1, -2) @ lie.skew(ext_p.expand(w.shape))
-    Jl, Jli = lie.jl_so3(lw), lie.jl_so3_inv(w)
+    error state dx = [dtheta, dp]: a left perturbation psi of R(lam) moves
+    the antenna by R(lam)^T [ext_p]x psi, psi and the position block from
+    `core.interp.interpolate_rotation_jacobian` (closed form; the JAX
+    package takes this Jacobian by `jax.jacfwd`)."""
+    R_t, J0, J1 = interpolate_rotation_jacobian(q0, q1, lam)
+    A = R_t.transpose(-1, -2) @ lie.skew(ext_p.expand(R_t.shape[:-1]))
     lm = lam[..., None, None]
-    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(A.shape)
-    return torch.cat([A @ (lm * Jl @ Jli.transpose(-1, -2) - E), (1.0 - lm) * eye,
-                      -lm * (A @ Jl @ Jli), lm * eye], dim=-1)
+    eye = torch.eye(3, dtype=R_t.dtype, device=R_t.device).expand(A.shape)
+    return torch.cat([A @ J0, (1.0 - lm) * eye, A @ J1, lm * eye], dim=-1)
 
 
 def gps_linear_system(clone_q, clone_p, clone_q_fej, clone_p_fej, slot0, slot1, lam,
@@ -253,8 +243,7 @@ def gps_linear_system(clone_q, clone_p, clone_q_fej, clone_p_fej, slot0, slot1, 
     R_t, p_t = interpolate_pose_linear(at(clone_q, slot0), at(clone_p, slot0),
                                        at(clone_q, slot1), at(clone_p, slot1), lam)
     pred = p_t + (R_t.transpose(-1, -2) @ ext[..., None])[..., 0]
-    H6 = _antenna_jacobian(at(clone_q_fej, slot0), at(clone_p_fej, slot0),
-                           at(clone_q_fej, slot1), at(clone_p_fej, slot1), lam, ext)
+    H6 = _antenna_jacobian(at(clone_q_fej, slot0), at(clone_q_fej, slot1), lam, ext)
     return H6, meas - pred
 
 

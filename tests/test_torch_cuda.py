@@ -70,6 +70,9 @@ def _gate_vec(M, chi2_mult, dev):
     # the live driver, one vehicle: 96 point and 20 / 16 line slots x 12 obs
     # (M = 24), D = 116 without GPS (run_sim's default) and 120 with it
     (3, 1, 96, 24, 116), (4, 1, 20, 24, 116), (3, 1, 96, 24, 120), (4, 1, 16, 24, 120),
+    # stereo point rows, a feature's left and right series (M = 4 obs): the
+    # images-in frame with two cameras (D = 147) and the live driver (D = 127)
+    (3, 64, 128, 32, 147), (3, 1, 96, 48, 127),
     # F not a multiple of the features per block; one sequence; M - k > 32;
     # D = 162: 648-byte rows, 8-byte aligned on odd rows; D = 41: rows only
     # 4-byte aligned
@@ -325,5 +328,96 @@ def test_frame_kernel_path_matches_plain_path(cuda_device, monkeypatch):
     assert int(sum(m["tracked"].sum() for m in m1)) > 0
     assert int(sum(m["line_tracked"].sum() for m in m1)) > 0
     assert int(sum(m["gps_accepted"].sum() for m in m1)) > 0
+    assert float((s1.p - s0.p).abs().max()) < 1e-5
+    assert float((s1.cov - s0.cov).abs().max()) < 1e-4 * float(s0.cov.abs().max())
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_interpolated_rows(cuda_device):
+    """Rows at interpolated poses (dynamic cloning): each observation's two
+    rows carry two 6-column clone blocks (one where both bounding slots
+    coincide), at the images-in frame's shape (B = 64, 128 features x 8
+    obs, D = 132)."""
+    from plviwo_tpu_torch.update.cam_helper import _scatter_clone_band
+
+    k, B, F, O, C, off, D = 3, 64, 128, 8, 14, 21, 132
+    rng = np.random.default_rng(11)
+    s0 = rng.integers(0, C - 1, size=(B, F, O))
+    s1 = np.minimum(s0 + rng.integers(0, 2, size=s0.shape), C - 1)
+    blocks = [torch.as_tensor(rng.normal(size=(B, F, O, 2, 6)).astype(F32), device=cuda_device)
+              for _ in range(2)]
+    Hx = _scatter_clone_band(blocks[0], torch.as_tensor(s0, device=cuda_device), C, off, D,
+                             blocks[1], torch.as_tensor(s1, device=cuda_device))
+    Hx = Hx.reshape(B, F, 2 * O, D).contiguous()
+    Hx[..., :off] = torch.as_tensor(0.1 * rng.normal(size=(B, F, 2 * O, off)).astype(F32),
+                                    device=cuda_device)
+    _, Hf, r, rowmask, cov = _systems(rng, B, F, 2 * O, D, k, cuda_device)
+    rowmask = rowmask & torch.as_tensor(np.repeat(rng.uniform(size=(B, F, O)) < 0.8, 2, -1),
+                                        device=cuda_device)
+    args = (Hx, Hf, r, rowmask, torch.full(r.shape, 1.0 / 1.3, device=cuda_device), cov,
+            _gate_vec(2 * O, 5.0, cuda_device), 15.0)
+    G1, c1, ok1, _ = gram_gate(*args)
+    G0, c0, ok0, _ = gram_gate_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ok1, ok0) and 0 < int(ok1.sum()) < ok1.numel()
+    for a, b in ((G1, G0), (c1, c0)):
+        torch.testing.assert_close(a, b, atol=2e-5 * (float(b.abs().max()) + 1e-9), rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stereo", "dynamic"])
+def test_frame_modes_kernel_path_matches_plain_path(cuda_device, monkeypatch, mode):
+    """Five images-in frames at B = 2 with points and wheel: stereo (two
+    cameras, a right image a frame: two LK launches and one gate/Gram per
+    frame) or dynamic cloning (sequence b clones where (frame + b) is even:
+    one LK and one gate/Gram); the kernel path matches the plain path."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.core import frame, step
+    from plviwo_tpu_torch.core.layout import StateLayout
+    from plviwo_tpu_torch.core.state import FilterState
+    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    stereo = mode == "stereo"
+    sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3))
+    layout = StateLayout(n_clones=6, n_cams=2 if stereo else 1, use_wheel=True)
+    frames = examples.frame_inputs(sim, 2, 5, torch.Generator(device=cuda_device).manual_seed(1),
+                                   t0=1.7, gps_pad=0, stereo=stereo)
+    gravity = torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=cuda_device)
+
+    def run():
+        st = FilterState.from_numpy([examples.seed_state(sim, layout, 1.7)] * 2, layout,
+                                    cuda_device)
+        ts = frame.make_track_state(480, 640, 32, 8, 3, batch=2, device=cuda_device)
+        out = []
+        for i, f in enumerate(frames):
+            kw = (dict(use_stereo=True, img_r=f["img_r"]) if stereo else dict(
+                use_dynamic=True, do_clone=torch.tensor([(i + b) % 2 == 0 for b in range(2)],
+                                                        device=cuda_device)))
+            st, ts, m = frame.fused_frame(
+                st, ts, f["img"], *f["imu"], f["t_new"], *f["wheel"],
+                torch.ones(2, dtype=torch.bool, device=cuda_device), gravity,
+                (1.7e-4, 2.0e-3, 1.9e-5, 3.0e-3), 1.5, 8.0, 2.0, (0.05, 0.05, 0.02),
+                use_lines=False, **kw)
+            out.append(m)
+        return st, ts, out
+
+    before = (lk_kernel.lk_pyramid.launches, gram_gate.launches)
+    s1, ts1, m1 = run()
+    torch.cuda.synchronize()
+    lk_per_frame = 2 if stereo else 1
+    assert (lk_kernel.lk_pyramid.launches, gram_gate.launches) == (
+        before[0] + 5 * lk_per_frame, before[1] + 5)
+    monkeypatch.setattr(frame.lk_kernel, "pyramidal_lk", klt.pyramidal_lk_conv)
+    monkeypatch.setattr(step, "gram_gate", gram_gate_plain)
+    s0, _, m0 = run()
+    for a, b in zip(m1, m0):
+        for k in ("tracked", "harvested", "accepted", "wheel_accepted"):
+            assert torch.equal(a[k], b[k]), k
+    assert int(sum(m["accepted"].sum() for m in m1)) > 0
+    if stereo:
+        assert int(ts1.rvalid.sum()) > 0
+    else:
+        assert int(s1.clone_valid.sum()) < 10
     assert float((s1.p - s0.p).abs().max()) < 1e-5
     assert float((s1.cov - s0.cov).abs().max()) < 1e-4 * float(s0.cov.abs().max())

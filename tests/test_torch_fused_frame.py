@@ -438,14 +438,6 @@ def test_make_track_state_takes_jax_positional_arguments():
         frame.make_track_state(32, 32, 4, 2, 2, 5, 3)
 
 
-@pytest.mark.parametrize("flag", ["use_stereo", "use_dynamic"])
-def test_fused_frame_refuses_unported_options(flag):
-    """Options the port does not run raise before any work."""
-    args = [None] * 17  # state, ts, img, the sensor inputs and constants
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        frame.fused_frame(*args, **{flag: True})
-
-
 @pytest.mark.parametrize("entry", ["make_state", "from_numpy", "batch_args", "example_inputs",
                                    "make_track_state"])
 def test_entry_points_default_to_the_card(entry):

@@ -450,7 +450,7 @@ def test_run_sim_cli(capsys):
 
 
 @pytest.mark.parametrize("argv,queue", [
-    (["--images", "--stereo"], "A8"), (["--images", "--dynamic"], "A8"),
+    (["--images", "--dynamic", "--intr-order", "3"], "A9"),
     (["--images", "--auto-init"], "A9"), (["--images", "--tags"], "A9"),
     (["--images", "--host-tracker"], "A9"), (["--images", "--imu-res"], "A9"),
     (["--images", "--calib"], "A9"), (["--lines", "--wheel"], "A9"),
@@ -465,22 +465,19 @@ def _refusal(case):
     opts = t_options.EstimatorOptions()
     if case == "zupt":
         opts.zupt.enabled = True
-    elif case == "dynamic":
-        opts.dynamic_cloning = True
     elif case == "gather_lk":
         opts.cam.fused_lk_conv = False
-    if case in ("zupt", "dynamic", "gather_lk"):
+    if case in ("zupt", "gather_lk"):
         return lambda: VioSystem(opts, device="cpu")
     s = VioSystem(opts, device="cpu")
     return {"camera": lambda: s.feed_camera(0.1, [1], [[1.0, 2.0]]),
             "stereo": lambda: s.feed_stereo(0.1, [], [], [], []),
-            "auto_init": lambda: s.feed_imu(0.0, np.zeros(3), np.array([0, 0, 9.81])),
-            "right_image": lambda: s.feed_image(0.1, np.zeros((8, 8)), np.zeros((8, 8)))}[case]
+            "auto_init": lambda: s.feed_imu(0.0, np.zeros(3), np.array([0, 0, 9.81]))}[case]
 
 
 @pytest.mark.parametrize("case,queue", [
-    ("zupt", "A9"), ("dynamic", "A8"), ("gather_lk", "Not ported"), ("camera", "A9"),
-    ("stereo", "A9"), ("auto_init", "A9"), ("right_image", "A8")])
+    ("zupt", "A9"), ("gather_lk", "Not ported"), ("camera", "A9"), ("stereo", "A9"),
+    ("auto_init", "A9")])
 def test_system_refuses_unported_modes(case, queue):
     with pytest.raises(NotImplementedError, match=queue):
         _refusal(case)()
