@@ -62,7 +62,21 @@ Phases (any failure raises, so the exit code is non-zero):
   15. both kernels vs their plain versions on the new paths' own
      arguments: the stereo frame's point call (M = 32, D = 147) and L->R LK
      call, the dynamic frame's and the dynamic driver's interpolated rows,
-     the stereo driver's point call (M = 48, D = 127).
+     the stereo driver's point call (M = 48, D = 127);
+  16. the per-track path (`VioSystem.feed_camera`, the simulator's data
+     association), mono: tests/test_e2e_vio.py's 15 s scenario held to its
+     five gates; frames/s, frame latency p50/p90, median stage ms, syncs
+     per frame (sync debug mode), and no kernel launch (JAX's per-track
+     path reaches no pallas_call);
+  17. the per-track path at the KAIST width (configs/kaist: clone rate
+     20 Hz, window 1 s, order 3, dynamic cloning, 150 points, 40 MSCKF
+     features, W3D_ANG wheel; D = 172): ATE < 1.0 m and within 1.5x of JAX's
+     driver on the CPU, lost_marg_obs as JAX's; readings as phase 16;
+  18. per-track stereo against mono through run_sim (8 s, seed 2): stereo
+     ATE below mono's;
+  19. the interpolation order at a 4 Hz clone cap (tests/test_poly_interp_e2e.py,
+     orders 1 and 3): both RMSE < 1.0 m, order 3 within 1.15x of order 1,
+     updates > 10, lost_marg_obs 0; readings as phase 16.
 Synthetic gate/Gram checks also run at the stereo shapes.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
@@ -97,6 +111,9 @@ LIVE_PTS, LIVE_LINES, LIVE_OBS = 96, 20, 12  # run_sim's slots and fused_max_obs
 LIVE_KEEP = 10  # frames whose gate/Gram arguments are kept for the kernel checks
 # tests/test_dynamic_fused.py's and tests/test_stereo_fused.py's frames
 DYN_FRAMES, STEREO_FRAMES = 90, 60
+# JAX's driver (Python feature store) on the CPU at phase 17's settings: its ATE (m)
+# and lost_marg_obs over the 15 s (PERF.md section 6)
+KAIST_JAX_ATE, KAIST_JAX_LOST = 0.028162140214340308, 4
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -1123,6 +1140,216 @@ def phase_new_path_kernels(stereo_args, dyn_args, dyn_live_args, stereo_live_arg
     return out
 
 
+def e2e_vio_options(o):
+    """tests/test_e2e_vio.py's estimator options (the per-track phases 16
+    and 19 start from them).  Returns o."""
+    o.window_size, o.clone_freq = 1.0, 10
+    o.cam.n_pts, o.cam.max_msckf, o.cam.sigma_pix = 60, 30, 0.5
+    o.cam.min_track_length, o.cam.chi2_mult = 4, 5.0
+    return o
+
+
+def kaist_options(o):
+    """configs/kaist's per-track settings: config_estimator.yaml (clone_freq
+    20, window 1.0, intr_order 3, dynamic cloning) and config_camera.yaml's
+    points (150, max_msckf 40, sigma_pix 1.5, chi2 x 8, min track 4; lines
+    wait for ROADMAP A9b), with a W3D_ANG wheel at run_sim's noise.
+    Returns o."""
+    o.clone_freq, o.window_size, o.intr_order, o.dynamic_cloning = 20, 1.0, 3, True
+    o.cam.n_pts, o.cam.max_msckf, o.cam.sigma_pix = 150, 40, 1.5
+    o.cam.chi2_mult, o.cam.min_track_length, o.cam.use_lines = 8.0, 4, False
+    w = o.wheel
+    w.enabled, w.type, w.chi2_mult = True, "Wheel3DAng", 10.0
+    w.noise_w, w.noise_v, w.noise_p = 0.05, 0.05, 0.02
+    return o
+
+
+def drive_track(system, events):
+    """Feed a per-track event stream (`examples.track_events`) to a
+    VioSystem on the card with both kernels' launch counts set to 0, the
+    frame timings kept and every synchronizing CUDA call counted (sync debug
+    mode).  Returns readings: launches, frames, frames/s, latency p50/p90
+    of the frame (`frame_timing["frame"]`: one `_process_pending` frame, its
+    last device read included), median stage ms, syncs and the driver's own
+    device reads per frame."""
+    import warnings
+
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    timing = []
+    torch.cuda.synchronize()
+    lk_kernel.lk_pyramid.launches = 0
+    gram_gate.launches = 0
+    reads0 = system.host_reads
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for kind, args in events:
+                n = len(system.traj)
+                examples.feed(system, kind, args)
+                if len(system.traj) > n:
+                    timing.append(system.frame_timing)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    n = len(timing)
+    lat = np.array([f["frame"] for f in timing])
+    return dict(launches={"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                          "msckf_gram_gate": gram_gate.launches},
+                frames=n, fps=n / wall, p50_ms=float(np.percentile(lat, 50)),
+                p90_ms=float(np.percentile(lat, 90)),
+                stages={k: float(np.median([f[k] for f in timing])) for k in timing[0]},
+                syncs_per_frame=syncs / n, reads_per_frame=(system.host_reads - reads0) / n,
+                D=system.layout.dim)
+
+
+def track_report(tag, system, r, extra=""):
+    st = ", ".join(f"{k} {v:.3f}" for k, v in r["stages"].items())
+    print(f"{tag} (B=1, D={r['D']}): stats {system.stats}{extra}; launches {r['launches']}; "
+          f"{r['frames']} frames, {r['fps']:.2f} frames/s; frame latency p50 {r['p50_ms']:.3f} ms, "
+          f"p90 {r['p90_ms']:.3f} ms; median stage ms: {st}; syncs per frame "
+          f"{r['syncs_per_frame']:.2f} (the driver's device reads {r['reads_per_frame']:.2f})")
+    if r["launches"] != {"lk_pyramid": 0, "msckf_gram_gate": 0}:
+        raise AssertionError(f"{tag}: the per-track path launched a kernel: {r['launches']}")
+
+
+def track_rmse(sim, system):
+    errs = np.array([np.linalg.norm(p - sim.gt_kin(t)["p_IinG"]) for t, _, p in system.traj])
+    return float(np.sqrt(np.mean(errs**2))), errs
+
+
+def phase_track_mono(dev):
+    """Phase 16, the per-track path, mono: tests/test_e2e_vio.py's scenario
+    (15 s, seed 1, the simulator's data association, 45 points a frame)
+    through `VioSystem.feed_camera` on the card, held to that file's five
+    gates; no kernel launch (no TPU kernel lies on JAX's per-track path)."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.ops import lie
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=15.0, seed=1, sigma_pix=0.5, n_pts=45, sigma_w=1.7e-4,
+                              sigma_a=2.0e-3, sigma_wb=1.9e-5, sigma_ab=3.0e-3))
+    system = VioSystem(e2e_vio_options(EstimatorOptions()), device=dev)
+    examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+    r = drive_track(system, examples.track_events(sim))
+    rmse, errs = track_rmse(sim, system)
+    st = system.stats
+    cov = system.state.cov[0].cpu().numpy()
+    active = np.flatnonzero(np.abs(np.diag(cov)) > 0)
+    sub = cov[np.ix_(active, active)]
+    eig = np.linalg.eigvalsh(sub)
+    t, q, _ = system.traj[-1]
+    dR = lie.quat_2_rot(torch.as_tensor(q)).numpy() @ sim.gt_kin(t)["R_GtoI"].T
+    ang = float(np.linalg.norm(lie.log_so3(torch.as_tensor(dR)).numpy()))
+    track_report("per-track mono", system, r, f"; RMSE {rmse:.4f} m, final {errs[-1]:.4f} m, "
+                 f"final orientation error {np.degrees(ang):.3f} deg")
+    ok = (len(system.traj) > 100 and rmse < 1.0 and errs[-1] < 2.0 and st["updates"] > 20
+          and st["cam_accept"] > 50
+          and st["cam_accept"] / max(st["cam_accept"] + st["cam_reject"], 1) > 0.5
+          and st["lost_marg_obs"] == 0 and bool(np.all(np.isfinite(cov)))
+          and bool(np.all(np.diag(sub) > 0)) and eig.min() > -1e-7 * eig.max()
+          and np.trace(cov[3:6, 3:6]) < 5.0 and ang < 0.05)
+    if not ok:
+        raise AssertionError("per-track mono: missed the gates of tests/test_e2e_vio.py")
+    return dict(r, rmse=rmse)
+
+
+def phase_track_kaist(dev):
+    """Phase 17, the per-track path at the KAIST width, mono:
+    `kaist_options` on `SimConfig(duration=15, seed=1, n_pts=150)` with a
+    W3D_ANG wheel (D = 172); ATE finite and < 1.0 m, lost_marg_obs as JAX's
+    driver's at these settings, and the ATE within 1.5x of that driver's
+    on the CPU (KAIST_JAX_ATE)."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=15.0, seed=1, n_pts=150))
+    system = VioSystem(kaist_options(EstimatorOptions()), device=dev)
+    examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+    r = drive_track(system, examples.track_events(sim, wheel=True))
+    rmse, _ = track_rmse(sim, system)
+    track_report("per-track KAIST width", system, r,
+                 f"; ATE {rmse:.4f} m (JAX's driver on the CPU: {KAIST_JAX_ATE} m)")
+    lost = system.stats["lost_marg_obs"]
+    if not (np.isfinite(rmse) and rmse < 1.0 and lost == KAIST_JAX_LOST
+            and rmse < 1.5 * KAIST_JAX_ATE):
+        raise AssertionError("per-track KAIST width: ATE not finite and < 1.0 m, or not within "
+                             f"1.5x of JAX's {KAIST_JAX_ATE} m, or lost_marg_obs {lost} != "
+                             f"JAX's {KAIST_JAX_LOST}")
+    return dict(r, rmse=rmse)
+
+
+def phase_track_stereo():
+    """Phase 18, per-track stereo against mono: tests/test_e2e_vio.py's
+    test_stereo_beats_mono (run_sim, 8 s, seed 2) through the port's run_sim
+    on the card; stereo ATE < mono ATE."""
+    import io
+
+    from plviwo_tpu_torch import run_sim
+
+    out = {}
+    for stereo in (False, True):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_sim.main(["--duration", "8", "--seed", "2"] + (["--stereo"] if stereo else []))
+        out[stereo] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0:
+            raise AssertionError(f"run_sim {'--stereo ' if stereo else ''}exited {rc}")
+    print(f"per-track run_sim (8 s, seed 2) on {out[True]['device']}: mono {out[False]}; "
+          f"stereo {out[True]}")
+    if not out[True]["ate_rmse_m"] < out[False]["ate_rmse_m"]:
+        raise AssertionError("per-track stereo: ATE not below mono's (tests/test_e2e_vio.py::"
+                             "test_stereo_beats_mono)")
+    return out
+
+
+def phase_track_orders(dev):
+    """Phase 19, the interpolation order at a 4 Hz clone cap:
+    tests/test_poly_interp_e2e.py's scenario (12 s, seed 3, dynamic cloning,
+    30 MSCKF features) at orders 1 and 3 through the port on the card; both
+    RMSE < 1.0 m, order 3 within 1.15x of order 1, updates > 10,
+    lost_marg_obs 0."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    out = {}
+    for order in (1, 3):
+        sim = Simulator(SimConfig(duration=12.0, seed=3, sigma_pix=0.5, n_pts=45))
+        o = EstimatorOptions()
+        o.dynamic_cloning, o.clone_freq, o.intr_order = True, 4, order
+        o.cam.max_msckf, o.cam.sigma_pix, o.cam.min_track_length, o.cam.chi2_mult = 30, 0.5, 4, 5.0
+        system = VioSystem(o, device=dev)
+        examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+        r = drive_track(system, examples.track_events(sim))
+        rmse, _ = track_rmse(sim, system)
+        track_report(f"per-track order {order} at a 4 Hz clone cap", system, r,
+                     f"; RMSE {rmse:.4f} m")
+        out[order] = dict(r, rmse=rmse, stats=dict(system.stats))
+    r1, r3 = out[1]["rmse"], out[3]["rmse"]
+    if not (r1 < 1.0 and r3 < 1.0 and r3 <= 1.15 * r1
+            and all(out[k]["stats"]["updates"] > 10 and out[k]["stats"]["lost_marg_obs"] == 0
+                    for k in (1, 3))):
+        raise AssertionError("per-track orders: missed tests/test_poly_interp_e2e.py's gates "
+                             f"(RMSE {r1:.4f} / {r3:.4f} m)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1197,6 +1424,15 @@ def main() -> int:
           f"at B={B_IMG}; live driver at B=1, dynamic cloning p50 {ldyn['p50_ms']:.3f} ms / p90 "
           f"{ldyn['p90_ms']:.3f} ms, stereo p50 {lst['p50_ms']:.3f} ms / p90 "
           f"{lst['p90_ms']:.3f} ms")
+    track = {"mono": phase_track_mono(dev), "kaist": phase_track_kaist(dev)}
+    phase_track_stereo()
+    orders = phase_track_orders(dev)
+    track["order1"], track["order3"] = orders[1], orders[3]
+    track_launches = {k: sum(r["launches"][k] for r in track.values())
+                      for k in ("lk_pyramid", "msckf_gram_gate")}
+    print("per-track path at B=1 on " + card + ": " + "; ".join(
+        f"{name} p50 {r['p50_ms']:.3f} ms / p90 {r['p90_ms']:.3f} ms, {r['fps']:.2f} frames/s, "
+        f"{r['syncs_per_frame']:.2f} syncs a frame" for name, r in track.items()))
 
     # one frame's two calls (points k = 3, lines k = 4): times summed, the
     # bound of their bytes and operations together
@@ -1231,7 +1467,8 @@ def main() -> int:
                               "images_in_stereo": st_launches["msckf_gram_gate"],
                               "images_in_dynamic": dyn_launches["msckf_gram_gate"],
                               "live_driver_dynamic": ldyn_launches["msckf_gram_gate"],
-                              "live_driver_stereo": lst_launches["msckf_gram_gate"]},
+                              "live_driver_stereo": lst_launches["msckf_gram_gate"],
+                              "per_track": track_launches["msckf_gram_gate"]},
          "stereo_shapes": {name: times(g) for name, g in zip(("images_in_d147_m32",
                                                                "live_driver_d127_m48"),
                                                               gram_stereo)},
@@ -1254,7 +1491,8 @@ def main() -> int:
                               "images_in_stereo": st_launches["lk_pyramid"],
                               "images_in_dynamic": dyn_launches["lk_pyramid"],
                               "live_driver_dynamic": ldyn_launches["lk_pyramid"],
-                              "live_driver_stereo": lst_launches["lk_pyramid"]},
+                              "live_driver_stereo": lst_launches["lk_pyramid"],
+                              "per_track": track_launches["lk_pyramid"]},
          "live_driver_b1": times(lk_live),
          "stereo_frame_lr": times(new_paths["stereo_frame_lk_lr"]),
          "captured_frame": times(lk_frame)}

@@ -149,6 +149,41 @@ def augment_clone(state: FilterState) -> FilterState:
     )
 
 
+def marginalize_clone(state: FilterState, slot) -> FilterState:
+    """Drop a clone per sequence: zero its covariance rows and columns and
+    free the slot (reference: StateHelper::marginalize,
+    StateHelper.cpp:235-303; there the matrix shrinks, here the slot is
+    zeroed and recycled).  slot: int, the same in every sequence."""
+    lo = state.layout
+    dev = state.cov.device
+    sel = (torch.arange(lo.n_clones, device=dev) == slot).expand(state.clone_valid.shape)
+    band = torch.zeros(state.cov.shape[:2], dtype=torch.bool, device=dev)
+    band[:, lo.clone_off:lo.clone_off + 6 * lo.n_clones] = torch.repeat_interleave(sel, 6, dim=1)
+    cov = torch.where(band[:, :, None] | band[:, None, :], 0.0, state.cov)
+    return state.replace(
+        clone_valid=state.clone_valid & ~sel,
+        clone_keyframe=state.clone_keyframe & ~sel,
+        clone_t=torch.where(sel, torch.inf, state.clone_t),
+        cov=cov,
+    )
+
+
+def measurement_compress(H, r, mask):
+    """Compress a tall stacked system to at most D rows (reference:
+    measurement_compress_inplace, StateHelper.cpp:602-614): the masked rows'
+    Gram system G = H^T H, c = H^T r through `compress_from_gram`, so
+    H'^T H' = G and H'^T r' = c.  H (B,M,D), r and mask (B,M).  Returns
+    (H', r', valid); a system of M <= D rows comes back masked and
+    uncompressed, as in the JAX package."""
+    Hm = torch.where(mask[..., None], H, 0.0)  # select, not multiply: NaN-safe
+    rm = torch.where(mask, r, 0.0)
+    if Hm.shape[-2] <= Hm.shape[-1]:
+        return Hm, rm, mask
+    G = Hm.transpose(-1, -2) @ Hm
+    c = (Hm.transpose(-1, -2) @ rm[..., None])[..., 0]
+    return compress_from_gram(G, c)
+
+
 def compress_from_gram(G, c):
     """(G = H^T H, c = H^T r) -> compressed rows (H' = L^T, r' = L^-1 c).
 

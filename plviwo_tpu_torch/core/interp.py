@@ -1,17 +1,23 @@
 """On-manifold pose interpolation between clones (port of
-plviwo_tpu/core/interp.py: the linear interpolation and its Jacobian).
+plviwo_tpu/core/interp.py: the linear and polynomial interpolations, their
+Jacobians and the per-track path's interpolation table).
 
-The linear interpolation serves the GPS rows and dynamic cloning's point
-rows, which both spread a measurement at an arbitrary time over its two
-bounding clones.  The JAX package takes the Jacobian with respect to those
-clones by `jax.jacfwd`; here it is written in closed form
-(`interpolate_rotation_jacobian`), since a forward-mode pass through
-`log_so3` and `exp_so3` costs hundreds of host operators a call.  The
-polynomial interpolation and the interpolation tables of the JAX module
-serve the per-track path (ROADMAP A9) and are not ported yet.
+The linear interpolation serves the GPS rows and the images-in frame's
+dynamic-cloning point rows, which spread a measurement at an arbitrary time
+over its two bounding clones.  The polynomial interpolation of order n
+(`polynomial_pose`) fits n + 1 clones; `build_interp_table` evaluates it at
+every measurement time of a per-track MSCKF update, with its Jacobian with
+respect to the support clones and to the evaluation time.  The JAX package
+takes those Jacobians by `jax.jacfwd`; here they are written in closed form
+(`interpolate_rotation_jacobian`, `_poly_jacobian`), since a forward-mode
+pass through `log_so3` and `exp_so3` costs hundreds of host operators a
+call.  `build_cpi_table` (the IMU-preintegrated alternative) is ROADMAP A9c;
+`bounding_clones` has no caller on a ported path.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ops import lie
 
@@ -50,3 +56,109 @@ def interpolate_rotation_jacobian(q0, q1, lam):
     lJ = lam[..., None, None] * lie.jl_so3(lw)
     Jli = lie.jl_so3_inv(w)
     return E @ R0, lJ @ Jli.transpose(-1, -2) - E, -(lJ @ Jli)
+
+
+def _poly_weights(dts, dt_eval):
+    """Weights of the order-n polynomial through the n clones after the
+    anchor, and their time derivative: with the Vandermonde V (tau_i^j) in
+    normalized time tau = dt / dts[-1], the fitted curve at dt_eval is
+    sum_i a_i x_i for the clones' offsets x_i from the anchor, a = ev V^-1
+    with ev = (dt_eval / dts[-1])^j, j = 1..n.  dts (...,n), dt_eval (...).
+    Returns (a (...,n), da/d(dt_eval) (...,n))."""
+    n = dts.shape[-1]
+    scale = torch.clamp(dts[..., -1:], min=1e-9)
+    j = torch.arange(1, n + 1, dtype=dts.dtype, device=dts.device)
+    V = (dts / scale)[..., :, None] ** j  # (...,n,n)
+    x = dt_eval[..., None] / scale
+    ev = x ** j
+    dev = j * x ** (j - 1) / scale
+    V_inv, _ = torch.linalg.inv_ex(V)  # no singularity check, so no host sync
+    return (ev[..., None, :] @ V_inv)[..., 0, :], (dev[..., None, :] @ V_inv)[..., 0, :]
+
+
+def polynomial_pose(q0, p0, qs, ps, dts, dt_eval):
+    """Order-n on-manifold polynomial interpolation (MINS-style; reference:
+    State::add_polynomial, State.cpp:725-798): theta(dt) = sum_i c_i dt^i
+    through the SO(3) log-differences of n later clones from the anchor
+    (q0, p0), likewise for position,
+
+        R(dt) = exp(theta(dt)) R_0,   p(dt) = p_0 + sum_i d_i dt^i,
+
+    with the Vandermonde in normalized time (condition number O(1) for any
+    clone spacing).  q0 (...,4), p0 (...,3), qs (...,n,4), ps (...,n,3),
+    dts (...,n) offsets from the anchor, dt_eval (...).  Returns
+    (R_t (...,3,3), p_t (...,3))."""
+    R0 = lie.quat_2_rot(q0)
+    th = lie.log_so3(lie.quat_2_rot(qs) @ R0[..., None, :, :].transpose(-1, -2))  # (...,n,3)
+    a, _ = _poly_weights(dts, dt_eval)
+    th_t = (a[..., None, :] @ th)[..., 0, :]
+    p_t = p0 + (a[..., None, :] @ (ps - p0[..., None, :]))[..., 0, :]
+    return lie.exp_so3(th_t) @ R0, p_t
+
+
+def _poly_k(q_sup, p_sup, dts, dt_eval):
+    """`polynomial_pose` over a (...,K) support set whose first clone is the
+    anchor (dts[..., 0] = 0).  Returns (R_t, p_t)."""
+    return polynomial_pose(q_sup[..., 0, :], p_sup[..., 0, :], q_sup[..., 1:, :],
+                           p_sup[..., 1:, :], dts[..., 1:], dt_eval)
+
+
+def _poly_jacobian(q_sup, p_sup, dts, dt_eval):
+    """The interpolated pose of `_poly_k` and its Jacobian in closed form.
+
+    The output's rotation error psi and each support clone's attitude error
+    dtheta_k are JPL left-multiplicative (R' = (I - [psi]x) R), positions
+    additive.  With w_i = log(R_i R_0^T), th = sum_i a_i w_i and
+    E = exp(th):
+
+      dpsi/dtheta_0 = E - Jl(th) sum_i a_i Jl^-1(w_i)^T,
+      dpsi/dtheta_i = a_i Jl(th) Jl^-1(w_i),
+      dp/dp_0 = (1 - sum_i a_i) I,   dp/dp_i = a_i I,
+      d[psi, p]/d(dt_eval) = [-Jl(th) sum_i a'_i w_i, sum_i a'_i (p_i - p_0)].
+
+    Returns (R_t (...,3,3), p_t (...,3), J (...,6,K,6), Jt (...,6))."""
+    R0 = lie.quat_2_rot(q_sup[..., 0, :])
+    w = lie.log_so3(lie.quat_2_rot(q_sup[..., 1:, :]) @ R0[..., None, :, :].transpose(-1, -2))
+    a, da = _poly_weights(dts[..., 1:], dt_eval)
+    th = (a[..., None, :] @ w)[..., 0, :]
+    dp = p_sup[..., 1:, :] - p_sup[..., :1, :]
+    E = lie.exp_so3(th)
+    Jl = lie.jl_so3(th)
+    Jli = lie.jl_so3_inv(w)  # (...,n,3,3)
+    aJ = Jl[..., None, :, :] @ (a[..., None, None] * Jli)  # (...,n,3,3)
+    rot0 = E - Jl @ torch.sum(a[..., None, None] * Jli.transpose(-1, -2), dim=-3)
+    rot = torch.cat([rot0[..., None, :, :], aJ], dim=-3)  # (...,K,3,3)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    wpos = torch.cat([1.0 - torch.sum(a, -1, keepdim=True), a], dim=-1)  # (...,K)
+    pos = wpos[..., None, None] * eye  # (...,K,3,3)
+    zero = torch.zeros_like(pos)
+    J = torch.cat([torch.cat([rot, zero], -1), torch.cat([zero, pos], -1)], -2)  # (...,K,6,6)
+    Jt = torch.cat([-(Jl @ (da[..., None, :] @ w)[..., 0, :, None])[..., 0],
+                    (da[..., None, :] @ dp)[..., 0, :]], dim=-1)
+    p_t = p_sup[..., 0, :] + (a[..., None, :] @ dp)[..., 0, :]
+    return E @ R0, p_t, J.transpose(-3, -2), Jt
+
+
+def build_interp_table(clone_q, clone_p, clone_q_fej, clone_p_fej, sup_slot, sup_dt, dt_eval,
+                       K: int, n_clones: int):
+    """Interpolated poses and FEJ Jacobians for a table of measurement times
+    (reference: the cached get_interpolated_jacobian per time,
+    State.cpp:833-973): the per-feature camera chain then multiplies
+    against a cached 6 x 6C block.
+
+    clone_q/p (B,C,4)/(B,C,3) and their FEJ mirrors; sup_slot (B,T,K) long,
+    the support clones of each time ascending in time; sup_dt (B,T,K) their
+    offsets from sup_slot[..., 0] (sup_dt[..., 0] = 0); dt_eval (B,T) the
+    evaluation offset from that anchor; K = order + 1.  Returns tq (B,T,4),
+    tp (B,T,3) at the estimates (residuals), tq_f, tp_f at the FEJ values,
+    tJ (B,T,6,6C) d[psi, p]/d[clone errors] in the clone band, and tJt
+    (B,T,6) d[psi, p]/d(dt_eval)."""
+    def at(ring):
+        bidx = torch.arange(ring.shape[0], device=ring.device)[:, None, None]
+        return ring[bidx, sup_slot]  # (B,T,K,.)
+
+    R_t, p_t = _poly_k(at(clone_q), at(clone_p), sup_dt, dt_eval)
+    R_tf, p_tf, J, Jt = _poly_jacobian(at(clone_q_fej), at(clone_p_fej), sup_dt, dt_eval)
+    onehot = (sup_slot[..., None] == torch.arange(n_clones, device=sup_slot.device)).to(J.dtype)
+    tJ = torch.einsum("btokj,btkc->btocj", J, onehot).reshape(J.shape[:3] + (6 * n_clones,))
+    return lie.rot_2_quat(R_t), p_t, lie.rot_2_quat(R_tf), p_tf, tJ, Jt

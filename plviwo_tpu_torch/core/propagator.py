@@ -321,6 +321,14 @@ class ImuBuffer:
         a = (1 - lam) * self.a[i] + lam * self.a[j]
         return w, a
 
+    def at(self, t: float):
+        """Interpolated (w, a) at time t, or None if uncovered (the per-clone
+        (omega, v) record behind the wheel dt-calibration column)."""
+        if len(self.t) < 2 or t < self.t[0] or t > self.t[-1]:
+            return None
+        i = int(np.clip(np.searchsorted(self.t, t, side="right") - 1, 0, len(self.t) - 2))
+        return self._interp(i, i + 1, t)
+
     def select(self, t0: float, t1: float, pad_to: int | None = None):
         """Samples covering [t0, t1] with interpolated boundary entries.
 

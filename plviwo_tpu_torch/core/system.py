@@ -1,8 +1,12 @@
-"""The live driver (port of plviwo_tpu/core/system.py: the images-in subset).
+"""The live driver (port of plviwo_tpu/core/system.py).
 
 `VioSystem` holds one vehicle (the batch-first state at B = 1) and is fed
-sensor by sensor: `feed_imu`, `feed_wheel`, `feed_gps` / `feed_gps_enu` and
-`feed_image`.  Host work is buffer assembly: padded IMU, wheel and GPS
+sensor by sensor: `feed_imu`, `feed_wheel`, `feed_gps` / `feed_gps_enu`, and
+camera frames through one of two paths: raw images (`feed_image`, the
+images-in path below) or tracked features (`feed_camera` / `feed_stereo`,
+the per-track path further down).  A system runs one of the two.
+
+The images-in path.  Host work is buffer assembly: padded IMU, wheel and GPS
 windows are selected from the host buffers (`ImuBuffer`, `WheelBuffer`,
 numpy), then each frame runs `core/frame.fused_frame` as one device step
 (tracking, propagation, clone, point/line/wheel/GPS rows, one joint EKF
@@ -18,10 +22,30 @@ frames between clones still track, and their point rows update poses
 interpolated between clones with the pixel noise inflated by the
 interpolation error; the wheel window then runs clone to clone.
 
+The per-track path.  Each frame's tracked ids and pixels (a tracker's, or
+the simulator's data association) are undistorted on the host and appended
+to the feature database (`update/feature_db.py`).  Once the IMU covers a
+frame, `_process_pending` propagates, marginalizes the clones leaving the
+window (harvesting the tracks that still observe them first), clones, and
+updates: the MSCKF rows of the tracks that were lost or observe a clone
+about to leave, at poses interpolated over the clones by the polynomial of
+order `intr_order` (`core/interp.build_interp_table`), and the wheel rows
+of each new clone pair, all summed into one joint EKF update a frame (or
+one update per sensor with `joint_update=False`); then the GPS fixes the
+clones cover.  With `opts.dynamic_cloning`, frames between clones are
+skipped: their observations stay in the database and update later through
+interpolated poses, at the order the rate policy picks.  The host keeps
+mirrors of the clone ring's times, validity and keyframe flags, so the
+bookkeeping reads no device state; the device is read where the JAX driver
+must read it too (the accepted-feature count, each wheel pair's chi^2, the
+recorded pose, the calibration estimates when they are estimated online).
+
 Not ported, and refused with NotImplementedError rather than skipped:
-`feed_camera` / `feed_stereo` (the per-track path with its feature
-databases), the IMU(+wheel) auto-initialization, ZUPT and the native
-feature store (ROADMAP A9).  Callers seed the state with `initialize_from`.
+per-track lines and SLAM landmarks (`feed_camera(line_ids=...)`,
+`cam.max_slam > 0`: ROADMAP A9b), the CPI-interpolated poses
+(`use_imu_res`), ZUPT and the IMU(+wheel) auto-initialization (A9c), and
+the native feature store (A9d; the Python store is used).  Callers seed the
+state with `initialize_from`.
 """
 
 from __future__ import annotations
@@ -36,12 +60,15 @@ import torch
 from ..config.options import EstimatorOptions
 from ..ops import cam as cam_ops
 from ..ops.chi2 import _TABLE as CHI2_TABLE
+from ..update import cam_helper
 from ..update import gps as gps_up
 from ..update import wheel as wheel_up
+from ..update.feature_db import FeatureDatabase
 from ..utils.timing import TimeChecker
 from . import dynamic_cloning as dynclone
-from . import propagator
+from . import ekf, propagator
 from .frame import fused_frame, make_track_state
+from .interp import build_interp_table
 from .layout import StateLayout
 from .state import CUDA, FilterState, checked_device, make_state, newest_clone_slot
 
@@ -65,7 +92,7 @@ class VioSystem:
         op = self.opts
         if op.zupt.enabled:
             raise NotImplementedError("zero-velocity updates (opts.zupt) are not ported yet "
-                                      "(ROADMAP A9)")
+                                      "(ROADMAP A9c)")
         if not op.cam.fused_lk_conv:
             raise NotImplementedError("the gather LK (cam.fused_lk_conv=False) is a TPU "
                                       "variant the port does not carry (ROADMAP A, Not ported)")
@@ -91,7 +118,6 @@ class VioSystem:
         self.frame_timing = {}  # ms of the latest frame: device step, host work, GPS
         self.wheel_type = wheel_up.TYPE_CODES.get(op.wheel.type, wheel_up.W3D_ANG)
         self._last_frame_t = None
-        self._fx = 1.0  # camera 0's fx, as set_calibration installs it
         # dynamic cloning: the next clone time, the rate chosen and the IMU's
         # acceleration at the last clone, and that clone's time
         self._next_clone_t = None
@@ -107,12 +133,38 @@ class VioSystem:
                       "line_accept": 0, "line_reject": 0, "lost_marg_obs": 0,
                       "gps_fused": 0}
         self.traj: list = []  # (t, q_GtoI, p_IinG) at clone times
+        self._path = None  # "images" or "tracks": the camera path this system runs
+        # the per-track path: feature store, frames waiting for IMU coverage,
+        # the joint update's row collector, the wheel pairs' bookkeeping
+        self.fdb = FeatureDatabase()
+        self.pending_frames: deque = deque()
+        self._joint_rows = None
+        self.chi2_table = torch.as_tensor(CHI2_TABLE, dtype=F64, device=self.device)
+        self.clone_wv = {}  # clone time -> (w_hat, v) for the wheel dt column
+        self.last_wheel_clone_t = None
+        self._frame_dt = None
+        # per-track dynamic cloning: frames before this time are skipped (the
+        # images-in path's clone policy keeps its own _next_clone_t)
+        self._track_next_clone_t = -np.inf if op.dynamic_cloning else None
+        self._cur_ang_acc = 0.0
+        self._cur_order = 1
+        # host mirrors of the clone ring and of the calibration the path reads
+        C = self.layout.n_clones
+        self._clone_t = np.full(C, np.inf)
+        self._clone_valid = np.zeros(C, dtype=bool)
+        self._clone_kf = np.zeros(C, dtype=bool)
+        self._cam_k = np.tile([1.0, 1.0, 0, 0, 0, 0, 0, 0], (self.layout.n_cams, 1))
+        self._cam_dt0 = 0.0
+        self._wheel_dt = 0.0
+        self.host_reads = 0  # device -> host reads made by the per-track path
 
     # ------------------------------------------------------------------
     # configuration helpers
     # ------------------------------------------------------------------
-    def _tensor(self, x):
-        return torch.tensor(np.asarray(x, dtype=np.float64), device=self.device)
+    def _tensor(self, x, dtype=F64):
+        """A host array on the device as `dtype`: a copy that does not wait
+        for the device's queued work."""
+        return torch.from_numpy(np.array(x)).to(self.device, dtype=dtype, non_blocking=True)
 
     def _set_at(self, name, index, value):
         """Copy of state field `name` with [:, index] set to value."""
@@ -123,7 +175,8 @@ class VioSystem:
     def set_calibration(self, cam_k, cam_q, cam_p, cam_dt=0.0, cam: int = 0):
         """Install camera calibration means into the state (per camera)."""
         if cam == 0:
-            self._fx = float(cam_k[0])
+            self._cam_dt0 = float(cam_dt)
+        self._cam_k[cam] = np.asarray(cam_k, dtype=np.float64)
         self.state = self.state.replace(
             cam_k=self._set_at("cam_k", cam, cam_k), cam_q=self._set_at("cam_q", cam, cam_q),
             cam_p=self._set_at("cam_p", cam, cam_p), cam_dt=self._set_at("cam_dt", cam, cam_dt))
@@ -133,6 +186,7 @@ class VioSystem:
         self.state = self.state.replace(
             wheel_q=t(wheel_q)[None], wheel_p=t(wheel_p)[None], wheel_k=t(intrinsics)[None],
             wheel_dt=t(dt)[None])
+        self._wheel_dt = float(dt)
 
     def set_gps_calibration(self, ext_p):
         """Install the antenna position in the IMU frame (the JAX driver
@@ -173,6 +227,9 @@ class VioSystem:
         self.state = st.replace(time=d(t)[None], q=q, p=p, v=v, bg=bg, ba=ba, q_fej=q, p_fej=p,
                                 v_fej=v, bg_fej=bg, ba_fej=ba, **calib)
         self._time = float(t)
+        self._clone_t[:] = np.inf
+        self._clone_valid[:] = False
+        self._clone_kf[:] = False
         self.initialized = True
 
     # ------------------------------------------------------------------
@@ -182,16 +239,63 @@ class VioSystem:
         self.imu_buf.feed(t, w, a)
         if not self.initialized:
             self._try_init()
+        self._process_pending()
         if self._pending_images:
             self._process_pending_images()
 
-    def feed_camera(self, *args, **kwargs):
-        raise NotImplementedError("feed_camera (tracked features into the per-track path) "
-                                  "is not ported yet (ROADMAP A9); use feed_image")
+    def _use_path(self, path: str):
+        """Bind the system to one camera path: the per-track path keeps host
+        mirrors of the clone ring that the images-in frame would not update."""
+        if self._path not in (None, path):
+            raise ValueError(f"this VioSystem runs the {self._path} path; feed {path} to "
+                             "another instance")
+        self._path = path
 
-    def feed_stereo(self, *args, **kwargs):
-        raise NotImplementedError("feed_stereo (the per-track stereo path) is not ported "
-                                  "yet (ROADMAP A9)")
+    def _per_track_checks(self, line_ids):
+        op = self.opts
+        if line_ids is not None:
+            raise NotImplementedError("per-track lines (feed_camera(line_ids=...)) are not "
+                                      "ported yet (ROADMAP A9b)")
+        if op.cam.max_slam > 0:
+            raise NotImplementedError("SLAM landmarks (cam.max_slam > 0) are not ported yet "
+                                      "(ROADMAP A9b)")
+        if op.use_imu_res:
+            raise NotImplementedError("CPI-interpolated poses (use_imu_res) are not ported yet "
+                                      "(ROADMAP A9c)")
+        self._use_path("tracks")
+
+    def _undistort(self, uvs, cam: int):
+        k = torch.from_numpy(self._cam_k_now()[cam])
+        return cam_ops.undistort_radtan(torch.from_numpy(uvs), k).numpy()
+
+    def feed_camera(self, t, ids, uvs, line_ids=None, line_segs=None, line_pids=None):
+        """One camera frame of tracked features: persistent ids (N,) and raw
+        pixels (N,2), appended to the feature database with their
+        undistorted normalized coordinates; the frame is processed once the
+        IMU covers it (see the module docstring).  line_ids, line_segs and
+        line_pids (per-track lines) are ROADMAP A9b."""
+        self._per_track_checks(line_ids)
+        uvs = np.atleast_2d(np.asarray(uvs, dtype=np.float64))
+        if len(ids) > 0:
+            for fid, uv, uvn in zip(ids, uvs, self._undistort(uvs, 0)):
+                self.fdb.update(int(fid), float(t), uv, uvn)
+        self.pending_frames.append(float(t))
+        if self.initialized:
+            self._process_pending()
+
+    def feed_stereo(self, t, ids0, uvs0, ids1, uvs1, line_ids=None, line_segs=None,
+                    line_pids=None):
+        """One stereo pair of tracked features with ids shared by the two
+        cameras (reference: TrackKLT::feed_stereo, TrackKLT.cpp:202-393):
+        the right camera's observations enter the same tracks under camera
+        1, and the MSCKF rows then carry a camera per observation."""
+        self._per_track_checks(line_ids)
+        uvs1 = np.atleast_2d(np.asarray(uvs1, dtype=np.float64))
+        if len(ids1) > 0:
+            uvns1 = self._undistort(uvs1, 1 % self.layout.n_cams)
+            for fid, uv, uvn in zip(ids1, uvs1, uvns1):
+                self.fdb.update(int(fid), float(t), uv, uvn, cam=1)
+        self.feed_camera(t, ids0, uvs0, line_ids, line_segs, line_pids)
 
     def feed_image(self, t, img, img_r=None):
         """One RAW camera frame (H, W) in [0, 1], and with img_r the right
@@ -202,6 +306,7 @@ class VioSystem:
         def dev(x):
             return torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
 
+        self._use_path("images")
         self._pending_images.append((float(t), dev(img),
                                      None if img_r is None else dev(img_r)))
         if self.initialized:
@@ -353,7 +458,7 @@ class VioSystem:
             self._next_clone_t = t + 1.0 / hz - 1e-6
             self._clone_hz = hz
         interp_std = dynclone.interp_noise_std(self._cur_accel, self._clone_hz, 1)
-        return do_clone, float(np.sqrt(sigma_pix**2 + (self._fx * interp_std) ** 2))
+        return do_clone, float(np.sqrt(sigma_pix**2 + (self._cam_k[0, 0] * interp_std) ** 2))
 
     def feed_gps(self, t, lat, lon, alt):
         """One geodetic GNSS fix (reference: feed_measurement_gps,
@@ -390,12 +495,15 @@ class VioSystem:
             kf = st.clone_keyframe.clone()
             kf[0, slot] = True
             self.state = st.replace(clone_keyframe=kf)
+            self._clone_kf[slot] = True
             self._last_kf_pos = pos
 
     def feed_wheel(self, t, m1, m2):
         """One wheel sample: (m1, m2) = (left, right) rates/velocities, or
         (omega, v) for the *Cen types (reference: WheelData.m1/m2)."""
         self.wheel_buf.feed(t, m1, m2)
+        if self.initialized:
+            self._process_pending()
 
     # ------------------------------------------------------------------
     # initialization and propagation
@@ -403,7 +511,7 @@ class VioSystem:
     def _try_init(self):
         raise NotImplementedError(
             "auto-initialization (init/static_imu.py, init/imu_wheel.py) is not ported yet "
-            "(ROADMAP A9): seed the state with initialize_from before feeding the IMU")
+            "(ROADMAP A9c): seed the state with initialize_from before feeding the IMU")
 
     def _propagate_to(self, t_target):
         t0 = self._time
@@ -421,6 +529,434 @@ class VioSystem:
 
     def _record_pose(self, t, q, p):
         self.traj.append((float(t), np.array(q), np.array(p)))
+
+    # ------------------------------------------------------------------
+    # the per-track path
+    # ------------------------------------------------------------------
+    def _host(self, x):
+        """A device tensor read to the host, counted in `host_reads`."""
+        self.host_reads += 1
+        return x.detach().cpu().numpy()
+
+    def _cam_k_now(self):
+        """Host copy of the camera intrinsics, read again from the state
+        when they are estimated online."""
+        if self.opts.cam.do_calib_int and self.initialized:
+            self._cam_k = self._host(self.state.cam_k[0])
+        return self._cam_k
+
+    def _process_pending(self):
+        op = self.opts
+        while self.pending_frames:
+            t_frame = self.pending_frames[0]
+            if t_frame <= self._time:
+                self.pending_frames.popleft()
+                continue
+            if self.imu_buf.newest < t_frame:
+                return  # wait for IMU coverage
+            # dynamic cloning: no clone at this frame while the motion lets
+            # the clone rate stay low (reference: get_next_clone_time +
+            # dynamic_cloning, SystemManager.cpp:172-312); the skipped
+            # frame's observations stay in the database and update later
+            # through interpolated poses
+            if op.dynamic_cloning and self._track_next_clone_t is not None:
+                if t_frame < self._track_next_clone_t - 1e-9:
+                    self.pending_frames.popleft()
+                    continue
+            self.pending_frames.popleft()
+            t_host0 = time.perf_counter()
+            if op.dynamic_cloning:
+                b = self.imu_buf
+                ang_acc, lin_acc = dynclone.estimate_accelerations(b.t, b.w, b.a,
+                                                                   gravity_mag=op.gravity_mag)
+                hz, order = dynclone.select_rate_and_order(
+                    ang_acc, lin_acc, max_order=op.intr_order, max_hz=float(op.clone_freq))
+                self._cur_ang_acc = ang_acc
+                self._cur_order = order
+                self._track_next_clone_t = t_frame + 1.0 / hz
+            if self._last_frame_t is not None and t_frame > self._last_frame_t:
+                self._frame_dt = t_frame - self._last_frame_t
+            self._last_frame_t = t_frame
+            tc = self.tc
+            tc.ding("propagate")
+            self._propagate_to(t_frame)
+            self._marginalize_for_window(t_frame)
+            ms_prop = 1e3 * tc.dong("propagate")
+            marg_times = self._next_marg_times(t_frame)
+            self._augment_clone()
+            self.stats["clones"] += 1
+            # (body rate, global velocity) at the clone time for the wheel
+            # dt-calibration column (the reference's CPI side-band w/v,
+            # UpdaterWheel.cpp:400-414; the propagated state at the clone
+            # time is exactly the CPI reconstruction)
+            if op.wheel.enabled and op.wheel.do_calib_dt:
+                wa = self.imu_buf.at(t_frame)
+                if wa is not None:
+                    bv = self._host(torch.cat([self.state.bg[0], self.state.v[0]]))
+                    self.clone_wv[t_frame] = (wa[0] - bv[:3], bv[3:].copy())
+            if op.joint_update:
+                self._joint_rows = []
+            tc.ding("cam")
+            self._msckf_update(t_frame, marg_times)
+            ms_cam = 1e3 * tc.dong("cam")
+            tc.ding("wheel")
+            if op.wheel.enabled:
+                self._wheel_update()
+            ms_wheel = 1e3 * tc.dong("wheel")
+            tc.ding("update")
+            self._apply_joint_rows()
+            ms_update = 1e3 * tc.dong("update")
+            st = self.state
+            qp = self._host(torch.cat([st.q[0], st.p[0]]))  # waits for the frame's device work
+            self._record_pose(self._time, qp[:4], qp[4:])
+            if self.gps is not None:
+                was_init = self.gps.initialized
+                self.gps.try_process(self)
+                if self.gps.initialized and not was_init:
+                    # alignment done: release the keyframes
+                    # (reference: SystemManager.cpp:164-168)
+                    self.state = self.state.replace(
+                        clone_keyframe=torch.zeros_like(self.state.clone_keyframe))
+                    self._clone_kf[:] = False
+            self._db_cleanup(t_frame - op.window_size - 0.05)
+            self.imu_buf.prune(t_frame - op.window_size - 0.5)
+            # host-clock stages: device work queued in a stage is waited for
+            # at the next read (the accepted count in "cam", the pose at the
+            # end of "frame")
+            self.frame_timing = {"propagate": ms_prop, "cam": ms_cam, "wheel": ms_wheel, "update": ms_update,
+                                 "frame": 1e3 * (time.perf_counter() - t_host0)}
+
+    def _augment_clone(self):
+        slot = int(np.argmin(self._clone_valid))  # the device takes the first free slot too
+        self.state = ekf.augment_clone(self.state)
+        self._clone_t[slot] = self._time
+        self._clone_valid[slot] = True
+        self._clone_kf[slot] = False
+
+    def _apply_joint_rows(self):
+        """Apply the frame's collected rows (unit noise) as ONE compress + EKF
+        update (the JAX driver's joint design; the reference updates sensor
+        by sensor, re-linearizing in between)."""
+        rows, self._joint_rows = self._joint_rows, None
+        if not rows:
+            return
+        H = torch.cat([h for h, _, _ in rows], dim=1)
+        r = torch.cat([r for _, r, _ in rows], dim=1)
+        m = torch.cat([m for _, _, m in rows], dim=1)
+        Hc, rc, cmask = ekf.measurement_compress(H, r, m)
+        self.state = ekf.update(self.state, Hc, rc, torch.ones_like(rc), cmask)
+        self.stats["updates"] += 1
+
+    def _marginalize_for_window(self, t_now):
+        """Free clone slots: drop clones older than the window, and the oldest
+        one if the ring is full (reference: marginalize_old_clone,
+        StateHelper.cpp:214-233).  Tracks still observing a dying clone are
+        harvested first with a final MSCKF update; a mature track still
+        holding such an observation afterwards is counted in
+        stats["lost_marg_obs"] (it must stay 0)."""
+        valid, times, keyframe = self._clone_valid, self._clone_t, self._clone_kf
+        t_min = t_now - self.opts.window_size
+        drop = valid & ~keyframe & (times < t_min)
+        if int((valid & ~drop).sum()) >= self.layout.n_clones:
+            rem = valid & ~drop & ~keyframe
+            if rem.any():
+                drop[int(np.argmin(np.where(rem, times, np.inf)))] = True
+        drop_slots = np.nonzero(drop)[0]
+        if len(drop_slots) == 0:
+            return
+        drop_times = {float(times[s]) for s in drop_slots}
+        if any(any(ti in drop_times for ti in tr.times) for tr in self.fdb.tracks.values()):
+            self._msckf_update(t_now, drop_times)
+        # immature tracks lose only their pre-window head, as in the
+        # reference's remove_unusable_measurements
+        min_len = self.opts.cam.min_track_length
+        usable_times = {float(times[i]) for i in np.nonzero(valid & ~drop)[0]} | drop_times
+        self.stats["lost_marg_obs"] += sum(
+            1 for tr in self.fdb.tracks.values()
+            if sum(1 for ti in tr.times if ti in usable_times) >= min_len
+            and any(ti in drop_times for ti in tr.times))
+        for slot in drop_slots:
+            self.state = ekf.marginalize_clone(self.state, int(slot))
+            self._clone_t[slot] = np.inf
+            self._clone_valid[slot] = False
+            self._clone_kf[slot] = False
+
+    def _next_marg_times(self, t_now):
+        """Times of every clone expected to leave the window by the next frame
+        (age-out and ring-full), so tracks observing them are harvested this
+        frame while the observations are still usable."""
+        valid, times, keyframe = self._clone_valid, self._clone_t, self._clone_kf
+        cand = valid & ~keyframe
+        if not cand.any():
+            return set()
+        dt = self._frame_dt if self._frame_dt else 1.0 / float(self.opts.clone_freq)
+        nct = self._track_next_clone_t
+        if self.opts.dynamic_cloning and nct is not None and np.isfinite(nct):
+            dt = max(dt, nct - t_now)
+        t_min_next = t_now + 1.5 * dt - self.opts.window_size
+        out = {float(t) for t in times[cand] if t < t_min_next}
+        # this frame adds a clone; if age-outs won't free a slot by the next
+        # frame the oldest will be forced out then
+        if int(valid.sum()) + 1 - len(out) >= self.layout.n_clones:
+            out.add(float(times[cand].min()))
+        return out
+
+    def _db_cleanup(self, t_min):
+        self.fdb.cleanup(t_min)
+        for t in [t for t in self.clone_wv if t < t_min]:
+            del self.clone_wv[t]
+
+    def _wheel_update(self):
+        """Preintegrated relative-pose rows over consecutive clone pairs
+        (reference: UpdaterWheel::try_update walking the clones newer than
+        last_updated_clone_time, UpdaterWheel.cpp:36-140): 3D or planar by
+        the wheel type, with the time-offset column when it is estimated,
+        each pair chi^2-gated on its own."""
+        op = self.opts.wheel
+        lo = self.layout
+        valid, times = self._clone_valid, self._clone_t
+        slots_sorted = sorted((float(times[i]), int(i)) for i in np.nonzero(valid)[0])
+        if len(slots_sorted) < 2:
+            return
+        if self.last_wheel_clone_t is None:
+            self.last_wheel_clone_t = slots_sorted[0][0]
+        tmap = {t: s for t, s in slots_sorted}
+        if self.last_wheel_clone_t not in tmap:
+            # marginalized away; restart from the oldest available
+            self.last_wheel_clone_t = slots_sorted[0][0]
+        if op.do_calib_dt:
+            self._wheel_dt = float(self._host(self.state.wheel_dt)[0])
+        toff = self._wheel_dt
+        planar = self.wheel_type in (wheel_up.W2D_ANG, wheel_up.W2D_LIN, wheel_up.W2D_CEN)
+        rows = 3 if planar else 6
+        eye = torch.eye(rows, dtype=F64, device=self.device)
+        mask = torch.ones((1, rows), dtype=torch.bool, device=self.device)
+        ones = torch.ones((1, rows), dtype=F64, device=self.device)
+        gate = float(CHI2_TABLE[rows]) * op.chi2_mult
+        for t1, slot1 in slots_sorted:
+            t0 = self.last_wheel_clone_t
+            if t1 <= t0:
+                continue
+            sel = self.wheel_buf.select(t0 - toff, t1 - toff, pad_to=WHEEL_PAD)
+            if sel is None:
+                break
+            ts, m1s, m2s = self._tensor(np.stack(sel))[:, None]
+            st = self.state
+            slot0 = tmap[t0]
+            slots = self._tensor([slot0, slot1], torch.long)[:, None]
+            # the dt-calibration column needs (w, v) at both clone times
+            do_dt = op.do_calib_dt and t0 in self.clone_wv and t1 in self.clone_wv
+            if do_dt:
+                wv = self._tensor(np.concatenate([*self.clone_wv[t0], *self.clone_wv[t1]]))
+                dt_args = dict(wheel_dt_off=lo.wheel_dt, do_calib_dt=True,
+                               w0=wv[None, 0:3], v0=wv[None, 3:6], w1=wv[None, 6:9],
+                               v1=wv[None, 9:12])
+            else:
+                dt_args = dict(wheel_dt_off=0, do_calib_dt=False)
+            ring = (st.clone_q, st.clone_p, st.clone_q_fej, st.clone_p_fej, slots[0], slots[1],
+                    st.wheel_q, st.wheel_p)
+            noise = (op.noise_w, op.noise_v, op.noise_p, self.wheel_type)
+            if planar:
+                th_m, xy_m, Cov = wheel_up.preintegrate_2d(ts, m1s, m2s, st.wheel_k, *noise)
+                H, res = wheel_up.linear_system_2d(*ring, th_m, xy_m, lo.n_clones, lo.clone_off,
+                                                   lo.dim, **dt_args)
+            else:
+                R_m, p_m, Cov, dR_di, dp_di = wheel_up.preintegrate_3d(ts, m1s, m2s, st.wheel_k,
+                                                                       *noise)
+                H, res = wheel_up.linear_system_3d(
+                    *ring, R_m, p_m, dR_di, dp_di, lo.n_clones, lo.clone_off, lo.dim,
+                    lo.wheel_ext, lo.wheel_int, op.do_calib_ext, op.do_calib_int, **dt_args)
+            Hw, rw = ekf.whiten(H, res, Cov + 1e-12 * eye)
+            chi = float(self._host(ekf.chi2(st.cov, Hw, rw, ones, mask))[0])
+            if chi < gate:
+                if self._joint_rows is not None:
+                    self._joint_rows.append((Hw, rw, mask))  # whitened: unit noise
+                else:
+                    self.state = ekf.update(st, Hw, rw, ones, mask)
+                self.stats["wheel_accept"] += 1
+            else:
+                self.stats["wheel_reject"] += 1
+            self.last_wheel_clone_t = t1
+        self.wheel_buf.prune(self.last_wheel_clone_t - toff - 0.5)
+        for t in [t for t in self.clone_wv if t < self.last_wheel_clone_t - 1e-9]:
+            del self.clone_wv[t]
+
+    def _interp_table(self, vt, vslots, obs_t, obs_valid):
+        """The interpolated-pose table over the unique measurement times of
+        an observation batch: the host picks K = order + 1 support clones
+        per time (the reference's bounding_poses_n, State.cpp:1053-1136),
+        the device evaluates `build_interp_table`.  Narrows obs_valid in
+        place when more than T = 2C + 8 times occur (the oldest are
+        dropped).  Returns (obs_tidx, tq, tp, tq_f, tp_f, tJ, tJt,
+        is_interp, order) or None."""
+        op = self.opts
+        lo = self.layout
+        if len(vt) < 2 or not obs_valid.any():
+            return None
+        order = self._cur_order if op.dynamic_cloning else op.intr_order
+        order = max(1, min(order, len(vt) - 1))
+        K = order + 1
+        T = 2 * lo.n_clones + 8
+        tarr = np.unique(obs_t[obs_valid])
+        if len(tarr) > T:
+            tarr = tarr[-T:]  # keep the newest times; drop overflow obs
+            obs_valid &= np.isin(obs_t, tarr)
+        # online dt estimation: the labeled time goes with the initial
+        # cam_dt; evaluate the pose at t_label + (dt_est - dt_initial)
+        # (reference: State.cpp:833-973)
+        dt_shift = (float(self._host(self.state.cam_dt[0, 0])) - self._cam_dt0
+                    if op.cam.do_calib_dt else 0.0)
+        # padding rows: distinct slots and offsets keep the Vandermonde
+        # invertible (their outputs are unused)
+        sup_slot = np.tile(np.arange(K, dtype=np.int64)[None, :], (T, 1))
+        sup_dt = np.tile(np.arange(K, dtype=np.float64)[None, :], (T, 1))
+        dt_eval = np.zeros(T)
+        for i, ti in enumerate(tarr):
+            j = int(np.searchsorted(vt, ti))
+            lo_i = int(np.clip(j - K // 2, 0, len(vt) - K))
+            ts = vt[lo_i:lo_i + K]
+            sup_slot[i] = vslots[lo_i:lo_i + K]
+            sup_dt[i] = ts - ts[0]
+            dt_eval[i] = ti - ts[0] + dt_shift
+        obs_tidx = np.searchsorted(tarr, obs_t).clip(0, T - 1)
+        obs_tidx[~obs_valid] = 0
+        st = self.state
+        f = self._tensor(np.concatenate([sup_dt.ravel(), dt_eval]))
+        table = build_interp_table(st.clone_q, st.clone_p, st.clone_q_fej, st.clone_p_fej,
+                                   self._tensor(sup_slot, torch.long)[None],
+                                   f[:T * K].reshape(1, T, K),
+                                   f[T * K:][None], K=K, n_clones=lo.n_clones)
+        is_interp = (~np.isin(obs_t, vt) if abs(dt_shift) < 1e-9
+                     else np.ones_like(obs_valid))
+        return (obs_tidx,) + table + (is_interp, order)
+
+    def _msckf_update(self, t_frame, marg_times):
+        """MSCKF update of the tracks that are lost or observe a clone in
+        marg_times (reference: UpdaterCamera::msckf_update,
+        UpdaterCamera.cpp:197-294; candidates as CamHelper::get_features,
+        :613-707): their observations at times the clones cover, at most
+        cam.max_msckf tracks (longest first), triangulated at the table's
+        poses, one 2-row system per observation, nullspace-projected and
+        chi^2-gated per feature; the rows join the frame's joint update (or
+        update alone).  The tracks are consumed."""
+        op = self.opts.cam
+        lo = self.layout
+        valid, times = self._clone_valid, self._clone_t
+        tmap = {float(times[i]): i for i in np.nonzero(valid)[0]}
+        vslots = np.nonzero(valid)[0]
+        vt = times[vslots]
+        order_idx = np.argsort(vt)
+        vt, vslots = vt[order_idx], vslots[order_idx]
+        t_lo, t_hi = (vt[0], vt[-1]) if len(vt) else (np.inf, -np.inf)
+
+        def usable(ti):
+            """The clones cover time ti (at a clone or between two)."""
+            return ti in tmap or t_lo < ti < t_hi
+
+        cands = []
+        for fid, tr in self.fdb.tracks.items():
+            n_usable = sum(1 for ti in tr.times if usable(ti))
+            if n_usable < op.min_track_length:
+                continue
+            if tr.times[-1] < t_frame or any(ti in marg_times for ti in tr.times):
+                cands.append((n_usable, fid))
+        if not cands:
+            return
+        cands.sort(reverse=True)
+        cands = cands[:op.max_msckf]
+        Fn, O = op.max_msckf, lo.n_clones
+        obs_uv = np.zeros((Fn, O, 2))
+        obs_uvn = np.zeros((Fn, O, 2))
+        obs_t = np.zeros((Fn, O))
+        obs_valid = np.zeros((Fn, O), dtype=bool)
+        obs_cam = np.zeros((Fn, O), dtype=np.int64)
+        used_fids = []
+        for i, (_, fid) in enumerate(cands):
+            tr = self.fdb.tracks[fid]
+            j = 0
+            for k, (ti, uv, uvn) in enumerate(zip(tr.times, tr.uvs, tr.uvns)):
+                if usable(ti) and j < O:
+                    obs_uv[i, j] = uv
+                    obs_uvn[i, j] = uvn
+                    obs_t[i, j] = ti
+                    obs_cam[i, j] = tr.cam_of(k)
+                    obs_valid[i, j] = True
+                    j += 1
+            used_fids.append(fid)
+
+        # the interpolated-pose table over the unique measurement times
+        # (order from intr_order, or the dynamic selection)
+        tbl = self._interp_table(vt, vslots, obs_t, obs_valid)
+        if tbl is None:
+            return
+        obs_tidx, tq, tp, tq_f, tp_f, tJ, tJt, is_interp, order = tbl
+        fx = float(self._cam_k_now()[0, 0])
+        # per-row noise: pixel variance plus the interpolation error of
+        # off-clone observations (reference: CamHelper.cpp:211-225)
+        sigma2 = op.sigma_pix**2
+        if self.opts.dynamic_cloning:
+            interp_px = fx * dynclone.interp_noise_std(self._cur_ang_acc,
+                                                       float(self.opts.clone_freq), order)
+            s2_obs = sigma2 + (is_interp & obs_valid) * interp_px**2
+        # the host arrays in one copy: uv, uvn, valid, camera-0 flags and
+        # (dynamic cloning) the per-row noise as floats; table rows and
+        # cameras as integers
+        parts = [obs_uv, obs_uvn, obs_valid, obs_cam == 0]
+        if self.opts.dynamic_cloning:
+            parts.append(s2_obs)
+        f = self._tensor(np.concatenate([np.asarray(x, np.float64).reshape(Fn, O, -1)
+                                         for x in parts], axis=-1))[None]
+        idx = self._tensor(np.stack([obs_tidx, np.clip(obs_cam, 0, lo.n_cams - 1)]),
+                           torch.long)[:, None]
+        uv, uvn = f[..., 0:2], f[..., 2:4]
+        valid_t, cam0 = f[..., 4] > 0.5, f[..., 5] > 0.5
+        tidx, cams = idx[0], idx[1]
+        st = self.state
+        cam_q, cam_p, cam_k = (cam_helper.gather_slots(x, cams)
+                               for x in (st.cam_q, st.cam_p, st.cam_k))
+
+        # triangulate at the interpolated estimates
+        p_f, ok, avg_err = cam_helper.triangulate_batch(
+            uvn, cam_helper.gather_slots(tq, tidx), cam_helper.gather_slots(tp, tidx), valid_t,
+            cam_q, cam_p, min_dist=op.triangulation_min_dist,
+            max_dist=op.triangulation_max_dist, max_cond=op.triangulation_max_cond)
+        # moving-consistency: mean reprojection error below ~3 px
+        ok = ok & (avg_err < 3.0 / fx)
+
+        Hx, Hf, r, rowmask = cam_helper.point_systems_table_batch(
+            p_f, uv, tidx, valid_t, cam0, tq, tp, tq_f, tp_f, tJ, tJt, cam_q, cam_p, cam_k,
+            int(self.distortion_model), lo.clone_off, lo.dim,
+            lo.cam_dt(0) if op.do_calib_dt else -1,
+            lo.cam_ext(0) if op.do_calib_ext else -1,
+            lo.cam_int(0) if op.do_calib_int else -1)
+        rowmask = rowmask & ok[..., None]
+        if self.opts.dynamic_cloning:
+            s2_rows, r_unit = cam_helper.repeat_each(f[..., 6], 2), 1.0
+        else:
+            s2_rows, r_unit = sigma2, sigma2
+        Hn, rn, rowvalid, feat_ok = cam_helper.msckf_project_and_gate(
+            Hx, Hf, r, rowmask, st.cov, s2_rows, self.chi2_table, op.chi2_mult)
+        n_ok = int(self._host(feat_ok.sum()))
+        self.stats["cam_accept"] += n_ok
+        self.stats["cam_reject"] += len(cands) - n_ok
+        if n_ok == 0:
+            self.fdb.remove(used_fids)
+            return
+
+        M = Fn * Hn.shape[2]
+        H_all = Hn.reshape(1, M, lo.dim)
+        r_all = rn.reshape(1, M)
+        mask_all = rowvalid.reshape(1, M)
+        if self._joint_rows is not None:
+            # unit-noise rows (r_unit is 1 when the rows were whitened per row)
+            s = float(np.sqrt(r_unit))
+            self._joint_rows.append((H_all / s, r_all / s, mask_all))
+        else:
+            Hc, rc, cmask = ekf.measurement_compress(H_all, r_all, mask_all)
+            self.state = ekf.update(self.state, Hc, rc, torch.full_like(rc, r_unit), cmask)
+            self.stats["updates"] += 1
+        # consumed: MSCKF features are fire-and-forget
+        self.fdb.remove(used_fids)
 
     # ------------------------------------------------------------------
     # telemetry (reference: SystemManager::print_status/print_final_report,

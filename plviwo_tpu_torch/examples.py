@@ -11,6 +11,9 @@ numpy (and the port's simulator) alone.
   tests/test_fused_frame.py:29-82; `noisy_batch`, `lk_pair` and
   `frame_inputs` assemble B-sequence frame inputs (with GPS fixes) on the
   card as bench.py's images-in unit does.
+- The live driver's scenarios: `live_options`, `live_calibrate` and
+  `live_events` (images in); `track_events` (the per-track path, fed as
+  run_sim feeds it without --images); `feed`.
 """
 
 from __future__ import annotations
@@ -371,8 +374,9 @@ def stereo_options(opts, stereo: bool = True):
 def live_calibrate(system, sim, t0: float):
     """Install the simulator's camera (both stereo cameras where the layout
     has two), wheel and (with GPS) antenna calibration into a VioSystem and
-    seed it from ground truth at t0, as the live-driver tests do.  Works
-    with the port's VioSystem and, without GPS, the JAX package's."""
+    seed it from ground truth at t0, as the live-driver tests do (and, with
+    t0 the first IMU sample, run_sim without --images).  Works with the
+    port's VioSystem and, without GPS, the JAX package's."""
     c = sim.cfg
     system.set_calibration(np.asarray(c.intrinsics), np.asarray(c.cam_ext_q),
                            np.asarray(c.cam_ext_p))
@@ -431,7 +435,38 @@ def live_events(sim, t0: float, n_frames: int, enu=None, stereo: bool = False):
     return events
 
 
+def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = False):
+    """The per-track path's sensor stream as run_sim replays it without
+    images: the simulator's data association at every camera time (with
+    stereo the right camera's after the left's, frame by frame), then the
+    wheel samples, then the GPS fixes (world frame = ENU), all drawn in
+    that order after the IMU stream, as the JAX driver draws them; then per
+    IMU sample the fixes, wheel samples and frames due by then, then the
+    sample itself.  Works with the port's simulator and the JAX package's.
+    Returns [(kind, args)] with kind in "gps", "wheel", "camera", "stereo",
+    "imu": the arguments of VioSystem.feed_gps_enu, feed_wheel,
+    feed_camera, feed_stereo and feed_imu."""
+    imu_t, imu_w, imu_a = sim.imu_stream()
+    if stereo:
+        cams = [("stereo", (float(t),) + sim.cam_frame(t, cam=0) + sim.cam_frame(t, cam=1))
+                for t in sim.cam_times()]
+    else:
+        cams = [("camera", (float(t),) + sim.cam_frame(t)) for t in sim.cam_times()]
+    wheels = ([("wheel", (float(t),) + tuple(sim.wheel_sample(t))) for t in sim.wheel_times()]
+              if wheel else [])
+    fixes = [("gps", (float(t), sim.gps_sample(t))) for t in sim.gps_times()] if gps else []
+    events, idx = [], [0, 0, 0]
+    for i in range(len(imu_t)):
+        for k, stream in enumerate((fixes, wheels, cams)):
+            while idx[k] < len(stream) and stream[idx[k]][1][0] <= imu_t[i]:
+                events.append(stream[idx[k]])
+                idx[k] += 1
+        events.append(("imu", (float(imu_t[i]), imu_w[i], imu_a[i])))
+    return events
+
+
 def feed(system, kind: str, args):
-    """Hand one `live_events` event to a VioSystem."""
+    """Hand one `live_events` or `track_events` event to a VioSystem."""
     {"gps": system.feed_gps_enu, "wheel": system.feed_wheel, "image": system.feed_image,
+     "camera": system.feed_camera, "stereo": system.feed_stereo,
      "imu": system.feed_imu}[kind](*args)

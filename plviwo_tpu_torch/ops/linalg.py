@@ -95,21 +95,12 @@ def chol_unrolled(S):
     return torch.stack(cols, dim=-1)
 
 
-def forward_sub_unrolled(L, b):
-    """Forward substitution L y = b for small static n (batched)."""
-    n = L.shape[-1]
-    ys = []
-    for j in range(n):
-        acc = b[..., j]
-        for i in range(j):
-            acc = acc - L[..., j, i] * ys[i]
-        ys.append(acc / L[..., j, j])
-    return torch.stack(ys, dim=-1)
-
-
 def chi2_quadform(S, r):
-    """r^T S^-1 r for SPD S as ||L^-1 r||^2 (unrolled Cholesky + forward solve)."""
-    y = forward_sub_unrolled(chol_unrolled(S), r)
+    """r^T S^-1 r for SPD S (...,n,n) as ||L^-1 r||^2: one batched Cholesky
+    and one triangular solve (the JAX package unrolls both, a TPU
+    workaround; unrolled here they cost O(n^2) host operators)."""
+    L, _ = torch.linalg.cholesky_ex(S)
+    y = torch.linalg.solve_triangular(L, r[..., None], upper=False)[..., 0]
     return torch.sum(y * y, dim=-1)
 
 

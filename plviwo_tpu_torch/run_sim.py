@@ -1,12 +1,18 @@
-"""Simulation replay driver (port of plviwo_tpu/run_sim.py: the `--images`
-path): the simulator's IMU, rendered frames, wheel and GPS streams through
-the port's `VioSystem` in time order, one vehicle, then a TUM-format
-trajectory and a one-line JSON summary (the JAX driver's keys, plus the
-device the run used).  Exit code 0 iff the ATE is finite and under 5 m.
+"""Simulation replay driver (port of plviwo_tpu/run_sim.py): the simulator's
+IMU, camera, wheel and GPS streams through the port's `VioSystem` in time
+order, one vehicle, then a TUM-format trajectory and a one-line JSON summary
+(the JAX driver's keys, plus the device the run used).  Exit code 0 iff the
+ATE is finite and under 5 m.
+
+Without --images the camera stream is the simulator's data association
+(tracked ids and pixels, `Simulator.cam_frame`) into the per-track path
+(`feed_camera` / `feed_stereo`); with --images, rendered frames into the
+images-in path (`feed_image`).
 
 Usage (on the card; `--device cpu` runs the same on the CPU):
-    python -m plviwo_tpu_torch.run_sim --images --lines --wheel --gps --out traj.txt
-    python -m plviwo_tpu_torch.run_sim --images --wheel --stereo
+    python -m plviwo_tpu_torch.run_sim --wheel --gps --out traj.txt
+    python -m plviwo_tpu_torch.run_sim --stereo --dynamic --intr-order 3
+    python -m plviwo_tpu_torch.run_sim --images --lines --wheel --gps
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --dynamic --clone-freq 10
 
 Options of the JAX driver that the port does not run yet exit non-zero
@@ -23,62 +29,80 @@ import time
 
 # JAX driver options not ported yet -> the ROADMAP queue that owns them
 _NOT_PORTED = {
-    "intr_order": "A9 (polynomial interpolation, the per-track path)", "tags": "A9 (ArUco tags)",
-    "host_tracker": "A9 (host trackers)", "auto_init": "A9 (auto-initialization)",
-    "imu_res": "A9 (CPI interpolated poses)", "calib": "A9 (online calibration)",
-    "plc": "A9 (point-line-coupled rows)", "sequential_update": "A9 (per-sensor updates)",
-    "max_msckf": "A9 (the per-track MSCKF update)", "perturb": "A9 (online calibration)",
-    "viz_dir": "A10 (utils/viz)",
+    "plc": "A9b (point-line-coupled rows)", "auto_init": "A9c (auto-initialization)",
+    "imu_res": "A9c (CPI interpolated poses)", "tags": "A9d (ArUco tags)",
+    "host_tracker": "A9d (host trackers)", "viz_dir": "A10 (utils/viz)",
     "record": "A10 (utils/recorder)",
 }
+# options only the per-track path reads (JAX's feed_image path ignores them)
+_TRACKS_ONLY = {"intr_order", "calib", "sequential_update", "max_msckf"}
 
 
 def _parser():
-    ap = argparse.ArgumentParser(description="PL-VIWO port: simulated images-in replay")
+    ap = argparse.ArgumentParser(description="PL-VIWO port: simulated VIO replay")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; the run raises without a card unless it is 'cpu'")
     ap.add_argument("--duration", type=float, default=15.0, help="sim duration [s]")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--sigma-pix", type=float, default=0.5)
     ap.add_argument("--n-pts", type=float, default=45,
-                    help="tracker slots (the JAX driver's default 45 means 96 slots)")
-    ap.add_argument("--wheel", action="store_true", help="wheel-odometry fusion (VIWO)")
-    ap.add_argument("--lines", action="store_true", help="line-feature fusion (PL)")
-    ap.add_argument("--gps", action="store_true",
-                    help="GNSS fusion: host-side 4-DoF delayed init, then per-fix rows in "
-                         "the joint update")
-    ap.add_argument("--images", action="store_true",
-                    help="render frames and run the images-in frame (required: the "
-                         "simulator-association path is ROADMAP A9)")
-    ap.add_argument("--fused-f64", action="store_true",
-                    help="the frame's camera tensors in f64 instead of f32")
-    ap.add_argument("--max-obs", type=int, default=None,
-                    help="observation-history depth per tracker slot")
-    ap.add_argument("--out", type=str, default=None, help="TUM trajectory output path")
+                    help="landmarks associated per frame (with --images: tracker slots, the "
+                         "default 45 meaning 96)")
+    ap.add_argument("--max-msckf", type=int, default=None,
+                    help="MSCKF features per update (default 30)")
     ap.add_argument("--stereo", action="store_true",
-                    help="stereo: a right image per frame (L->R association, two cameras)")
+                    help="stereo: shared-id left/right observations (with --images: a right "
+                         "image per frame, L->R association)")
+    ap.add_argument("--wheel", action="store_true", help="wheel-odometry fusion (VIWO)")
+    ap.add_argument("--lines", action="store_true",
+                    help="line-feature fusion (PL; with --images only)")
+    ap.add_argument("--gps", action="store_true",
+                    help="GNSS fusion: host-side 4-DoF delayed init, then per-fix rows")
     ap.add_argument("--dynamic", action="store_true",
-                    help="dynamic cloning: adaptive clone rate, interpolated-pose point rows")
+                    help="dynamic cloning: adaptive clone rate, interpolated-pose updates")
     ap.add_argument("--clone-freq", type=int, default=None,
                     help="max clone rate [Hz] (with --dynamic this caps the adaptive rate)")
-    for flag in ("tags", "host_tracker", "auto_init", "imu_res", "calib", "plc",
-                 "sequential_update"):
+    ap.add_argument("--intr-order", type=int, default=None,
+                    help="polynomial interpolation order (1 = linear, 3 = cubic)")
+    ap.add_argument("--images", action="store_true",
+                    help="render frames and run the images-in frame instead of the "
+                         "simulator's data association")
+    ap.add_argument("--fused-f64", action="store_true",
+                    help="with --images: the frame's camera tensors in f64 instead of f32")
+    ap.add_argument("--max-obs", type=int, default=None,
+                    help="with --images: observation-history depth per tracker slot")
+    ap.add_argument("--perturb", type=float, default=0.0,
+                    help="perturb the installed camera extrinsic position (m scale)")
+    ap.add_argument("--calib", action="store_true",
+                    help="estimate the camera extrinsics online (do_calib_ext)")
+    ap.add_argument("--sequential-update", action="store_true",
+                    help="per-sensor sequential EKF updates instead of one joint update a frame")
+    ap.add_argument("--out", type=str, default=None, help="TUM trajectory output path")
+    for flag in ("tags", "host_tracker", "auto_init", "imu_res", "plc"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
-    for flag in ("intr_order", "max_msckf", "perturb", "viz_dir", "record"):
+    for flag in ("viz_dir", "record"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
     return ap
 
 
+def _refusals(args):
+    what = [f"--{f.replace('_', '-')}: ROADMAP {q}" for f, q in _NOT_PORTED.items()
+            if getattr(args, f) not in (False, None)]
+    if args.images:
+        what += [f"--{f.replace('_', '-')} with --images: the images-in path does not read it "
+                 "(ROADMAP A9a ported it for the per-track path: run without --images)"
+                 for f in sorted(_TRACKS_ONLY) if getattr(args, f) not in (False, None)]
+    elif args.lines:
+        what.append("--lines without --images (per-track lines): ROADMAP A9b")
+    return what
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
-    refused = [f for f in _NOT_PORTED if getattr(args, f) not in (False, None)]
-    if refused or not args.images:
-        what = [f"--{f.replace('_', '-')}: ROADMAP {_NOT_PORTED[f]}" for f in refused]
-        if not args.images:
-            what.append("runs without --images (simulator data association, the per-track "
-                        "path): ROADMAP A9")
+    what = _refusals(args)
+    if what:
         print("run_sim: not ported yet: " + "; ".join(what), file=sys.stderr)
         return 2
 
@@ -96,9 +120,17 @@ def main(argv=None):
     sim = Simulator(cfg)
 
     opts = EstimatorOptions()
+    opts.joint_update = not args.sequential_update
     opts.dynamic_cloning = args.dynamic
     if args.clone_freq is not None:
         opts.clone_freq = args.clone_freq
+    if args.intr_order is not None:
+        opts.intr_order = args.intr_order
+    if args.calib:
+        opts.cam.do_calib_ext = True
+        opts.cam.init_cov_ext_or = 0.02
+        opts.cam.init_cov_ext_pos = max(0.05, 2.0 * args.perturb)
+    opts.cam.max_msckf = 30 if args.max_msckf is None else args.max_msckf
     opts.cam.sigma_pix = max(args.sigma_pix, 0.3)
     opts.cam.min_track_length = 4
     opts.cam.chi2_mult = 5.0
@@ -122,20 +154,24 @@ def main(argv=None):
         opts.wheel.noise_p = 0.02
         opts.wheel.intrinsics = [cfg.wheel_rl, cfg.wheel_rr, cfg.wheel_base]
         opts.wheel.chi2_mult = 10.0
-    if args.fused_f64:
-        opts.cam.fused_dtype = "f64"
-    if args.max_obs is not None:
-        opts.cam.fused_max_obs = args.max_obs
-    # the images-in frame's settings
-    opts.cam.sigma_pix = max(opts.cam.sigma_pix, 1.5)
-    opts.cam.chi2_mult = 8.0
-    opts.cam.n_pts = int(args.n_pts) if args.n_pts != 45 else 96
-    opts.cam.max_lines = min(opts.cam.max_lines, 24)
-    if args.lines:
-        opts.cam.sigma_pix_line = 2.5
+    if args.images:
+        # the images-in frame's settings
+        if args.fused_f64:
+            opts.cam.fused_dtype = "f64"
+        if args.max_obs is not None:
+            opts.cam.fused_max_obs = args.max_obs
+        opts.cam.sigma_pix = max(opts.cam.sigma_pix, 1.5)
+        opts.cam.chi2_mult = 8.0
+        opts.cam.n_pts = int(args.n_pts) if args.n_pts != 45 else 96
+        opts.cam.max_lines = min(opts.cam.max_lines, 24)
+        if args.lines:
+            opts.cam.sigma_pix_line = 2.5
 
     sys_ = VioSystem(opts, device=args.device)
-    sys_.set_calibration(cfg.intrinsics, cfg.cam_ext_q, cfg.cam_ext_p)
+    cam_p_used = np.asarray(cfg.cam_ext_p, dtype=float)
+    if args.perturb > 0:
+        cam_p_used = cam_p_used + np.random.default_rng(args.seed + 1).normal(0, args.perturb, 3)
+    sys_.set_calibration(cfg.intrinsics, cfg.cam_ext_q, cam_p_used)
     if args.stereo:
         sys_.set_calibration(cfg.intrinsics, cfg.cam_ext_q,
                              np.asarray(cfg.cam_ext_p) + [-cfg.stereo_baseline, 0.0, 0.0], cam=1)
@@ -155,29 +191,33 @@ def main(argv=None):
 
     # the generator's draws in the JAX driver's order: every frame, then
     # the wheel samples, then the GPS fixes (identity world->ENU)
-    cam_iter = iter([(float(t), sim.render_frame(t, with_lines=args.lines))
-                     + ((sim.render_frame(t, with_lines=args.lines, cam=1),) if args.stereo
-                        else ())
-                     for t in sim.cam_times()])
-    next_cam = next(cam_iter, None)
-    wheel_iter = iter([(float(t),) + sim.wheel_sample(t) for t in sim.wheel_times()]
-                      if args.wheel else [])
-    next_wheel = next(wheel_iter, None)
-    gps_iter = iter([(float(t), sim.gps_sample(t)) for t in sim.gps_times()]
-                    if args.gps else [])
-    next_gps = next(gps_iter, None)
+    if args.images:
+        cam_kind = "image"
+        cams = [(float(t), sim.render_frame(t, with_lines=args.lines))
+                + ((sim.render_frame(t, with_lines=args.lines, cam=1),) if args.stereo else ())
+                for t in sim.cam_times()]
+    elif args.stereo:
+        cam_kind = "stereo"
+        cams = [(float(t),) + sim.cam_frame(t, cam=0) + sim.cam_frame(t, cam=1)
+                for t in sim.cam_times()]
+    else:
+        cam_kind = "camera"
+        cams = [(float(t),) + sim.cam_frame(t) for t in sim.cam_times()]
+    streams = [("gps", [(float(t), sim.gps_sample(t)) for t in sim.gps_times()]
+                if args.gps else []),
+               ("wheel", [(float(t),) + sim.wheel_sample(t) for t in sim.wheel_times()]
+                if args.wheel else []),
+               (cam_kind, cams)]
+    feeds = {"gps": sys_.feed_gps_enu, "wheel": sys_.feed_wheel, "image": sys_.feed_image,
+             "camera": sys_.feed_camera, "stereo": sys_.feed_stereo}
+    nxt = [0] * len(streams)
 
     t_wall = time.time()
     for i in range(len(imu_t)):
-        while next_gps is not None and next_gps[0] <= imu_t[i]:
-            sys_.feed_gps_enu(*next_gps)
-            next_gps = next(gps_iter, None)
-        while next_wheel is not None and next_wheel[0] <= imu_t[i]:
-            sys_.feed_wheel(*next_wheel)
-            next_wheel = next(wheel_iter, None)
-        while next_cam is not None and next_cam[0] <= imu_t[i]:
-            sys_.feed_image(*next_cam)
-            next_cam = next(cam_iter, None)
+        for k, (kind, items) in enumerate(streams):
+            while nxt[k] < len(items) and items[nxt[k]][0] <= imu_t[i]:
+                feeds[kind](*items[nxt[k]])
+                nxt[k] += 1
         sys_.feed_imu(imu_t[i], imu_w[i], imu_a[i])
     wall = time.time() - t_wall
 
@@ -217,6 +257,16 @@ def main(argv=None):
     if args.gps:
         summary["gps_initialized"] = bool(sys_.gps.initialized)
         summary["gps_fused_rows"] = sys_.stats["gps_fused"]
+    if args.calib:
+        lo = sys_.layout
+        e = lo.cam_ext(0) + 3
+        st = sys_.state
+        ext_err = float(np.linalg.norm(st.cam_p[0, 0].cpu().numpy() - np.asarray(cfg.cam_ext_p)))
+        ext_std = float(np.sqrt(np.trace(st.cov[0, e:e + 3, e:e + 3].cpu().numpy())))
+        summary["cam_ext_err_m"] = round(ext_err, 4)
+        summary["cam_ext_err0_m"] = round(
+            float(np.linalg.norm(cam_p_used - np.asarray(cfg.cam_ext_p))), 4)
+        summary["cam_ext_3sigma_m"] = round(3 * ext_std, 4)
     dev = sys_.device
     summary["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(json.dumps(summary))

@@ -8,10 +8,11 @@ and noise; tests/test_torch_fused_frame.py holds the two to each other.
 It gives the chip smoke real frames, IMU and wheel data on a machine
 without JAX.
 
-Ported: `gt_pose`, `gt_kin`, `imu_stream`, `cam_times`, `render_frame` of
-the left camera (with `line_frame` and `_draw_line`), `wheel_times`,
-`wheel_sample`, `gps_times` and `gps_sample`.  Not ported: fiducial tags
-(`n_tags > 0` is refused), the right stereo camera and `cam_frame`.
+Ported: `gt_pose`, `gt_kin`, `imu_stream`, `cam_times`, `cam_frame` (the
+simulator's data association, both stereo cameras), `render_frame` (with
+`line_frame` and `_draw_line`, both cameras), `wheel_times`, `wheel_sample`,
+`gps_times` and `gps_sample`.  Not ported: fiducial tags (`n_tags > 0` is
+refused).
 
 Conventions match the filter: q_GtoI JPL, gravity g = [0,0,9.81],
 a_m = R_GtoI (a_G + g) + ba + n_a,  w_m = w_body + bg + n_g.
@@ -158,6 +159,33 @@ class Simulator:
     def _project(self, p_C):
         k = torch.tensor(self.cfg.intrinsics, dtype=F64)
         return cam_ops.project(torch.as_tensor(p_C), k, cam_ops.RADTAN).numpy()
+
+    def cam_frame(self, t, cam: int = 0):
+        """Visible landmark observations at time t: (ids (M,) int64, uvs
+        (M,2)) with pixel noise, the simulator acting as a perfect
+        data-association tracker (TrackSIM).  cam=1 is the right stereo
+        camera, its center shifted by `stereo_baseline` along camera x;
+        landmark ids are shared by both cameras.  Draws a permutation when
+        more than n_pts are visible, then the noise, as the JAX package
+        does."""
+        c = self.cfg
+        kin = self.spline.imu_true(t)
+        p_IinC = np.asarray(c.cam_ext_p, dtype=np.float64)
+        if cam == 1:
+            p_IinC = p_IinC + np.array([-c.stereo_baseline, 0.0, 0.0])
+        p_C = (_rot(c.cam_ext_q) @ kin["R_GtoI"] @ (self.landmarks - kin["p_IinG"]).T).T + p_IinC
+        front = p_C[:, 2] > 0.3
+        uv = self._project(p_C[front])
+        ids_all = np.nonzero(front)[0]
+        inb = ((uv[:, 0] > 1) & (uv[:, 0] < c.width - 2) & (uv[:, 1] > 1)
+               & (uv[:, 1] < c.height - 2) & (np.linalg.norm(p_C[front], axis=1) < 60.0))
+        ids, uv = ids_all[inb], uv[inb]
+        if len(ids) > c.n_pts:
+            sel = self.rng.permutation(len(ids))[: c.n_pts]
+            sel.sort()
+            ids, uv = ids[sel], uv[sel]
+        uv = uv + self.rng.normal(0, c.sigma_pix, uv.shape)
+        return ids.astype(np.int64), uv
 
     def line_frame(self, t):
         """Visible line observations: (ids, endpoints_uv (M,4)) with noise."""

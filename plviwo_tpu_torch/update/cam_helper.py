@@ -15,7 +15,6 @@ import torch
 from ..core.interp import interpolate_pose_linear, interpolate_rotation_jacobian
 from ..ops import cam as cam_ops
 from ..ops import lie
-from ..ops.jac import jacfwd_batched
 from ..ops.linalg import chi2_quadform, eigvals_sym3x3, solve3x3
 
 
@@ -139,13 +138,11 @@ def _dzn_dpc(p_C, z):
 
 
 def _duv_dzn(zn, ck, model):
-    """d(pixel)/d(zn) (...,2,2) only: cam_ops.distort_jacobian would also
-    take the intrinsics Jacobian, which the rows without calibration do
-    not use."""
-    (duv_dzn,) = jacfwd_batched(
-        cam_ops.distort_radtan if model == cam_ops.RADTAN else cam_ops.distort_equi,
-        (zn, ck), (0,))
-    return duv_dzn
+    """d(pixel)/d(zn) (...,2,2) in closed form: the focal lengths times the
+    distortion model's d(distorted zn)/d(zn) (the intrinsics Jacobian of
+    cam_ops.distort_jacobian is taken only where calibration rows need it)."""
+    jac = cam_ops._jac_radtan if model == cam_ops.RADTAN else cam_ops._jac_equi
+    return ck[..., 0:2, None] * jac(zn, ck)
 
 
 def _point_systems(p_f, obs_uv, obs_slot, obs_valid, clone_q, clone_p, clone_q_fej,
@@ -259,6 +256,73 @@ def point_systems_interp_batch(p_f, obs_uv, obs_slot0, obs_slot1, obs_lam, obs_v
     Hf = dpix @ R_GtoC_f
     rowmask = repeat_each(obs_valid, 2)
     return (Hx.reshape(B, F, 2 * O, D), Hf.reshape(B, F, 2 * O, 3), r, rowmask)
+
+
+def point_systems_table_batch(p_f, obs_uv, obs_tidx, obs_valid, obs_cam0,
+                              tq, tp, tq_f, tp_f, tJ, tJt, cam_q, cam_p, cam_k,
+                              model: int, clone_off: int, D: int,
+                              dt_col: int = -1, ext_col: int = -1, int_col: int = -1):
+    """Per-feature MSCKF systems against the interpolated-pose table (port of
+    `_point_system_table_single` mapped over features, the per-track
+    update's row builder).
+
+    Each observation indexes a table row (tq/tp: the pose at the estimates,
+    for the residual; tq_f/tp_f with tJ/tJt: the FEJ pose and its Jacobians
+    with respect to the clones and the evaluation time) and carries its own
+    camera's extrinsic and intrinsic row, so stereo observations mix cameras
+    inside one feature.  The projection's Jacobians (pose, feature,
+    extrinsic, intrinsic) are in closed form where the JAX package takes
+    `jax.jacfwd` through a JPL-perturbed projection; the clone band is
+    J_pose @ tJ[tidx] (reference: CamHelper.cpp:58-267, State.cpp:833-973).
+    The calibration columns (dt_col, ext_col, int_col >= 0: reference
+    CamHelper.cpp:77-102,139-167) are filled on camera-0 rows only
+    (obs_cam0); the dt column is J_pose @ tJt[tidx].
+
+    p_f (B,F,3), obs_uv (B,F,O,2), obs_tidx (B,F,O) long, obs_valid and
+    obs_cam0 (B,F,O) bool, the table (B,T,.) as `core.interp.
+    build_interp_table` returns it, cam_q/cam_p/cam_k (B,F,O,4/3/8).
+    Returns Hx (B,F,2O,D), Hf (B,F,2O,3), r (B,F,2O), rowmask (B,F,2O)."""
+    B, F, O = obs_tidx.shape
+    pf = p_f[:, :, None, :]
+    R_ItoC = lie.quat_2_rot(cam_q)
+
+    # residual at the interpolated estimates
+    R_t = lie.quat_2_rot(gather_slots(tq, obs_tidx))
+    p_C = _mv(R_ItoC, _mv(R_t, pf - gather_slots(tp, obs_tidx))) + cam_p
+    z = torch.clamp(p_C[..., 2], min=1e-6)
+    r = (obs_uv - cam_ops.distort(p_C[..., :2] / z[..., None], cam_k, model)).reshape(B, F, 2 * O)
+
+    # Jacobians at the interpolated FEJ pose
+    R_f = lie.quat_2_rot(gather_slots(tq_f, obs_tidx))
+    pf_in_I = _mv(R_f, pf - gather_slots(tp_f, obs_tidx))
+    pf_in_C = _mv(R_ItoC, pf_in_I)
+    p_C_f = pf_in_C + cam_p
+    z_f = torch.clamp(p_C_f[..., 2], min=1e-6)
+    dzn = _dzn_dpc(p_C_f, z_f)
+    # jax.jacfwd through the depth clamp: no depth derivative below it
+    dzn = dzn * torch.stack([torch.ones_like(z_f), torch.ones_like(z_f),
+                             (p_C_f[..., 2] > 1e-6).to(z_f.dtype)], -1)[..., None, :]
+    zn_f = p_C_f[..., :2] / z_f[..., None]
+    dpix = _duv_dzn(zn_f, cam_k, model) @ dzn  # (B,F,O,2,3)
+    R_GtoC_f = R_ItoC @ R_f
+    Jp = torch.cat([dpix @ (R_ItoC @ lie.skew(pf_in_I)), dpix @ -R_GtoC_f], dim=-1)  # (..,2,6)
+    Hf = dpix @ R_GtoC_f
+    Hc = Jp @ gather_slots(tJ, obs_tidx)  # (B,F,O,2,6C)
+
+    Hx = Hc.new_zeros((B, F, O, 2, D))
+    Hx[..., clone_off:clone_off + Hc.shape[-1]] = Hc
+    c0 = obs_cam0.to(Hx.dtype)[..., None, None]  # calibration columns: camera-0 rows only
+    if dt_col >= 0:
+        Hx[..., dt_col] = (Jp @ gather_slots(tJt, obs_tidx)[..., None])[..., 0] * c0[..., 0]
+    if ext_col >= 0:
+        eye = torch.eye(3, dtype=Hx.dtype, device=Hx.device).expand(dpix.shape[:-2] + (3, 3))
+        Je = torch.cat([dpix @ lie.skew(pf_in_C), dpix @ eye], dim=-1)
+        Hx[..., ext_col:ext_col + 6] = Je * c0
+    if int_col >= 0:
+        _, Ji = cam_ops.distort_jacobian(zn_f, cam_k, model)
+        Hx[..., int_col:int_col + 8] = Ji * c0
+    rowmask = repeat_each(obs_valid, 2)
+    return Hx.reshape(B, F, 2 * O, D), Hf.reshape(B, F, 2 * O, 3), r, rowmask
 
 
 def _nullspace(Hf, Hx, r):

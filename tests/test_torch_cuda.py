@@ -421,3 +421,47 @@ def test_frame_modes_kernel_path_matches_plain_path(cuda_device, monkeypatch, mo
         assert int(s1.clone_valid.sum()) < 10
     assert float((s1.p - s0.p).abs().max()) < 1e-5
     assert float((s1.cov - s0.cov).abs().max()) < 1e-4 * float(s0.cov.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mono_wheel", "stereo_dynamic"])
+def test_per_track_frames_on_the_card_match_the_cpu(cuda_device, mode):
+    """The per-track path (feed_camera / feed_stereo, the simulator's data
+    association) for 1.5 s of simulation on the card and on the CPU: points
+    and wheel with one joint update a frame, or stereo with dynamic cloning
+    at order 3 under a 4 Hz cap.  `stats` equal after every frame; positions
+    within 3e-2 m and the covariance within 0.1 max|cov| (the bounds the CPU
+    tests hold the port to against JAX: the compressed update amplifies the
+    card's other float32 rounding of the IMU transition)."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    def run(device):
+        sim = Simulator(SimConfig(duration=1.5, seed=1, sigma_pix=0.5, n_pts=45))
+        o = EstimatorOptions()
+        o.cam.max_msckf, o.cam.sigma_pix, o.cam.min_track_length, o.cam.chi2_mult = 30, 0.5, 4, 5.0
+        if mode == "mono_wheel":
+            o.wheel.enabled, o.wheel.noise_w, o.wheel.noise_v, o.wheel.noise_p = True, 0.05, 0.05, 0.02
+        else:
+            o.cam.max_n, o.cam.min_track_length = 2, 6
+            o.dynamic_cloning, o.clone_freq, o.intr_order = True, 4, 3
+        s = VioSystem(o, device=device)
+        examples.live_calibrate(s, sim, float(sim.imu_t[0]))
+        out = []
+        for kind, args in examples.track_events(sim, stereo=mode != "mono_wheel",
+                                                wheel=o.wheel.enabled):
+            n = len(s.traj)
+            examples.feed(s, kind, args)
+            if len(s.traj) > n:
+                out.append((dict(s.stats), s.traj[-1][2], s.state.cov[0].cpu().numpy()))
+        return out
+
+    card, cpu = run(cuda_device), run("cpu")
+    assert len(card) == len(cpu) > 3
+    for (sa, pa, ca), (sb, pb, cb) in zip(card, cpu):
+        assert sa == sb
+        assert np.max(np.abs(pa - pb)) < 3e-2
+        assert np.max(np.abs(ca - cb)) < 0.1 * np.max(np.abs(cb))
+    assert card[-1][0]["cam_accept"] > 0

@@ -450,11 +450,12 @@ def test_run_sim_cli(capsys):
 
 
 @pytest.mark.parametrize("argv,queue", [
-    (["--images", "--dynamic", "--intr-order", "3"], "A9"),
-    (["--images", "--auto-init"], "A9"), (["--images", "--tags"], "A9"),
-    (["--images", "--host-tracker"], "A9"), (["--images", "--imu-res"], "A9"),
-    (["--images", "--calib"], "A9"), (["--lines", "--wheel"], "A9"),
-    (["--images", "--record", "out"], "A10")])
+    (["--images", "--dynamic", "--intr-order", "3"], "A9a"),
+    (["--images", "--auto-init"], "A9c"), (["--images", "--tags"], "A9d"),
+    (["--images", "--host-tracker"], "A9d"), (["--images", "--imu-res"], "A9c"),
+    (["--images", "--calib"], "A9a"), (["--lines", "--wheel"], "A9b"),
+    (["--images", "--record", "out"], "A10"), (["--auto-init"], "A9c"),
+    (["--wheel", "--imu-res"], "A9c"), (["--images", "--sequential-update"], "A9a")])
 def test_run_sim_refuses_unported_modes(capsys, argv, queue):
     assert run_sim.main(["--device", "cpu"] + argv) != 0
     err = capsys.readouterr()
@@ -469,15 +470,21 @@ def _refusal(case):
         opts.cam.fused_lk_conv = False
     if case in ("zupt", "gather_lk"):
         return lambda: VioSystem(opts, device="cpu")
+    if case == "max_slam":
+        opts.cam.max_slam = 4
+    elif case == "imu_res":
+        opts.use_imu_res = True
     s = VioSystem(opts, device="cpu")
-    return {"camera": lambda: s.feed_camera(0.1, [1], [[1.0, 2.0]]),
-            "stereo": lambda: s.feed_stereo(0.1, [], [], [], []),
+    return {"line_ids": lambda: s.feed_camera(0.1, [1], [[1.0, 2.0]], line_ids=[3],
+                                              line_segs=[[1.0, 2.0, 30.0, 40.0]]),
+            "max_slam": lambda: s.feed_camera(0.1, [1], [[1.0, 2.0]]),
+            "imu_res": lambda: s.feed_stereo(0.1, [], [], [], []),
             "auto_init": lambda: s.feed_imu(0.0, np.zeros(3), np.array([0, 0, 9.81]))}[case]
 
 
 @pytest.mark.parametrize("case,queue", [
-    ("zupt", "A9"), ("gather_lk", "Not ported"), ("camera", "A9"), ("stereo", "A9"),
-    ("auto_init", "A9")])
+    ("zupt", "A9c"), ("gather_lk", "Not ported"), ("line_ids", "A9b"), ("max_slam", "A9b"),
+    ("imu_res", "A9c"), ("auto_init", "A9c")])
 def test_system_refuses_unported_modes(case, queue):
     with pytest.raises(NotImplementedError, match=queue):
         _refusal(case)()
