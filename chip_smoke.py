@@ -77,7 +77,22 @@ Phases (any failure raises, so the exit code is non-zero):
   19. the interpolation order at a 4 Hz clone cap (tests/test_poly_interp_e2e.py,
      orders 1 and 3): both RMSE < 1.0 m, order 3 within 1.15x of order 1,
      updates > 10, lost_marg_obs 0; readings as phase 16.
-Synthetic gate/Gram checks also run at the stereo shapes.
+  20. per-track points + lines, mono: tests/test_lines.py::
+     test_e2e_points_and_lines's scenario (10 s, seed 7, 20 lines an
+     update): line_accept > 10, RMSE < 1.0 m and within 1.5x of JAX's driver
+     on the CPU;
+     readings as phase 16, the "line" stage included;
+  21. the per-track path at the KAIST width with lines (phase 17 with
+     config_camera.yaml's 40 lines at sigma_pix_line 2.5; L = 40 lines x 44
+     rows, D = 172): ATE < 1.0 m and within 1.5x of JAX's driver on the
+     CPU, lost_marg_obs as JAX's, line_accept > 0; readings as phase 16;
+  22. SLAM landmarks: tests/test_slam.py's scenario in both representations
+     (>= 3 active slots, RMSE < 1.0 m, landmarks within 2 m of the truth),
+     then tests/test_joint_update.py's live replay with 6 slots and GPS,
+     joint (inverse depth: the GPS init marginalizes the landmarks) and
+     sequential, held to that test's parity gate; readings as phase 16.
+Phases 16-22 launch no kernel (asserted): no TPU kernel lies on JAX's
+per-track path.  Synthetic gate/Gram checks also run at the stereo shapes.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
 JAX.
@@ -114,6 +129,10 @@ DYN_FRAMES, STEREO_FRAMES = 90, 60
 # JAX's driver (Python feature store) on the CPU at phase 17's settings: its ATE (m)
 # and lost_marg_obs over the 15 s (PERF.md section 6)
 KAIST_JAX_ATE, KAIST_JAX_LOST = 0.028162140214340308, 4
+# the same at phase 21's settings (ATE, lost_marg_obs), and at phase 20's its RMSE (m)
+# (tests/test_torch_per_track_lines.py::test_chip_smoke_jax_constants recomputes these)
+LINES_JAX_RMSE = 0.10217998200056672
+KAIST_LINES_JAX_ATE, KAIST_LINES_JAX_LOST = 0.031129871097390037, 3
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -1149,29 +1168,32 @@ def e2e_vio_options(o):
     return o
 
 
-def kaist_options(o):
+def kaist_options(o, lines=False):
     """configs/kaist's per-track settings: config_estimator.yaml (clone_freq
     20, window 1.0, intr_order 3, dynamic cloning) and config_camera.yaml's
-    points (150, max_msckf 40, sigma_pix 1.5, chi2 x 8, min track 4; lines
-    wait for ROADMAP A9b), with a W3D_ANG wheel at run_sim's noise.
-    Returns o."""
+    points (150, max_msckf 40, sigma_pix 1.5, chi2 x 8, min track 4) and,
+    with lines, its lines (use_lines, max_lines 40, sigma_pix_line 2.5), with
+    a W3D_ANG wheel at run_sim's noise.  Returns o."""
     o.clone_freq, o.window_size, o.intr_order, o.dynamic_cloning = 20, 1.0, 3, True
     o.cam.n_pts, o.cam.max_msckf, o.cam.sigma_pix = 150, 40, 1.5
-    o.cam.chi2_mult, o.cam.min_track_length, o.cam.use_lines = 8.0, 4, False
+    o.cam.chi2_mult, o.cam.min_track_length = 8.0, 4
+    o.cam.use_lines, o.cam.max_lines, o.cam.sigma_pix_line = lines, 40, 2.5
     w = o.wheel
     w.enabled, w.type, w.chi2_mult = True, "Wheel3DAng", 10.0
     w.noise_w, w.noise_v, w.noise_p = 0.05, 0.05, 0.02
     return o
 
 
-def drive_track(system, events):
+def drive_track(system, events, per_frame=None):
     """Feed a per-track event stream (`examples.track_events`) to a
     VioSystem on the card with both kernels' launch counts set to 0, the
     frame timings kept and every synchronizing CUDA call counted (sync debug
-    mode).  Returns readings: launches, frames, frames/s, latency p50/p90
+    mode); per_frame(system) runs after each processed frame (host reads
+    only).  Returns readings: launches, frames, frames/s, latency p50/p90
     of the frame (`frame_timing["frame"]`: one `_process_pending` frame, its
-    last device read included), median stage ms, syncs and the driver's own
-    device reads per frame."""
+    last device read included), median stage ms and the line stage's mean,
+    syncs and the driver's own device reads per frame, and the most reads
+    between two frames."""
     import warnings
 
     import torch
@@ -1180,7 +1202,7 @@ def drive_track(system, events):
     from plviwo_tpu_torch.ops import lk_kernel
     from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
 
-    timing = []
+    timing, reads = [], []
     torch.cuda.synchronize()
     lk_kernel.lk_pyramid.launches = 0
     gram_gate.launches = 0
@@ -1195,6 +1217,9 @@ def drive_track(system, events):
                 examples.feed(system, kind, args)
                 if len(system.traj) > n:
                     timing.append(system.frame_timing)
+                    reads.append(system.host_reads)
+                    if per_frame is not None:
+                        per_frame(system)
             wall = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -1207,16 +1232,18 @@ def drive_track(system, events):
                 frames=n, fps=n / wall, p50_ms=float(np.percentile(lat, 50)),
                 p90_ms=float(np.percentile(lat, 90)),
                 stages={k: float(np.median([f[k] for f in timing])) for k in timing[0]},
+                line_mean_ms=float(np.mean([f["line"] for f in timing])),
                 syncs_per_frame=syncs / n, reads_per_frame=(system.host_reads - reads0) / n,
-                D=system.layout.dim)
+                reads_max=int(np.max(np.diff([reads0] + reads))), D=system.layout.dim)
 
 
 def track_report(tag, system, r, extra=""):
     st = ", ".join(f"{k} {v:.3f}" for k, v in r["stages"].items())
     print(f"{tag} (B=1, D={r['D']}): stats {system.stats}{extra}; launches {r['launches']}; "
           f"{r['frames']} frames, {r['fps']:.2f} frames/s; frame latency p50 {r['p50_ms']:.3f} ms, "
-          f"p90 {r['p90_ms']:.3f} ms; median stage ms: {st}; syncs per frame "
-          f"{r['syncs_per_frame']:.2f} (the driver's device reads {r['reads_per_frame']:.2f})")
+          f"p90 {r['p90_ms']:.3f} ms; median stage ms: {st}; line stage mean "
+          f"{r['line_mean_ms']:.3f} ms; syncs per frame {r['syncs_per_frame']:.2f} (the driver's "
+          f"device reads {r['reads_per_frame']:.2f}, at most {r['reads_max']} in one frame)")
     if r["launches"] != {"lk_pyramid": 0, "msckf_gram_gate": 0}:
         raise AssertionError(f"{tag}: the per-track path launched a kernel: {r['launches']}")
 
@@ -1350,6 +1377,132 @@ def phase_track_orders(dev):
     return out
 
 
+def lines_options(o):
+    """tests/test_lines.py::test_e2e_points_and_lines's estimator options
+    (25 MSCKF features, sigma_pix 0.5, chi2 x 5, 20 lines a frame at
+    sigma_pix_line 2.0).  Returns o."""
+    o.cam.max_msckf, o.cam.sigma_pix, o.cam.min_track_length, o.cam.chi2_mult = 25, 0.5, 4, 5.0
+    o.cam.use_lines, o.cam.max_lines, o.cam.sigma_pix_line = True, 20, 2.0
+    return o
+
+
+def phase_track_lines(dev):
+    """Phase 20, per-track points + lines, mono: tests/test_lines.py::
+    test_e2e_points_and_lines's scenario (10 s, seed 7, 35 points and up to
+    50 lines a frame) through `VioSystem.feed_camera` with lines on the
+    card; line_accept > 10, RMSE < 1.0 m and within 1.5x of JAX's driver on
+    the CPU (LINES_JAX_RMSE); no kernel launch.  A missed gate is returned
+    as `failed` (the later phases still run, and main exits 1)."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=10.0, seed=7, sigma_pix=0.5, n_pts=35, sigma_pix_line=1.0,
+                              n_lines=50))
+    system = VioSystem(lines_options(EstimatorOptions()), device=dev)
+    examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+    r = drive_track(system, examples.track_events(sim, lines=True))
+    rmse, _ = track_rmse(sim, system)
+    track_report("per-track points + lines", system, r,
+                 f"; RMSE {rmse:.4f} m ({rmse / LINES_JAX_RMSE:.3f}x JAX's driver on the CPU)")
+    failed = None
+    if not (system.stats["line_accept"] > 10 and rmse < 1.0 and rmse < 1.5 * LINES_JAX_RMSE):
+        failed = ("per-track points + lines: missed tests/test_lines.py's gates (line_accept > "
+                  f"10, RMSE < 1.0 m) or 1.5x JAX's {LINES_JAX_RMSE} m: line_accept "
+                  f"{system.stats['line_accept']}, RMSE {rmse} m")
+        print(f"FAILED {failed}")
+    return dict(r, rmse=rmse, failed=failed)
+
+
+def phase_track_kaist_lines(dev):
+    """Phase 21, the per-track path at the KAIST width with lines:
+    `kaist_options(lines=True)` (config_camera.yaml's 40 lines at
+    sigma_pix_line 2.5) on phase 17's `SimConfig(duration=15, seed=1,
+    n_pts=150)` and its 60 lines; ATE finite, < 1.0 m and within 1.5x of
+    JAX's driver on the CPU (KAIST_LINES_JAX_ATE), lost_marg_obs as JAX's,
+    line_accept > 0."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=15.0, seed=1, n_pts=150))
+    system = VioSystem(kaist_options(EstimatorOptions(), lines=True), device=dev)
+    examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+    r = drive_track(system, examples.track_events(sim, wheel=True, lines=True))
+    rmse, _ = track_rmse(sim, system)
+    track_report("per-track KAIST width with lines", system, r,
+                 f"; ATE {rmse:.4f} m (JAX's driver on the CPU: {KAIST_LINES_JAX_ATE} m)")
+    st = system.stats
+    if not (np.isfinite(rmse) and rmse < 1.0 and rmse < 1.5 * KAIST_LINES_JAX_ATE
+            and st["lost_marg_obs"] == KAIST_LINES_JAX_LOST and st["line_accept"] > 0):
+        raise AssertionError("per-track KAIST width with lines: ATE not finite and < 1.0 m or "
+                             f"not within 1.5x of JAX's {KAIST_LINES_JAX_ATE} m, lost_marg_obs "
+                             f"{st['lost_marg_obs']} != JAX's {KAIST_LINES_JAX_LOST}, or no line "
+                             "accepted")
+    return dict(r, rmse=rmse)
+
+
+def phase_track_slam(dev):
+    """Phase 22, SLAM landmarks: tests/test_slam.py's scenario (10 s, seed 1,
+    8 slots) in both representations through the port on the card (>= 3
+    active slots at some time, RMSE < 1.0 m, every checked landmark within
+    2 m of the truth), then tests/test_joint_update.py's live replay with 6
+    slots and GPS, joint (inverse-depth landmarks: the GPS init marginalizes
+    them on the card) and sequential (xyz): both initialize landmarks and
+    the GPS, RMSE < 1.0 m each and within 0.2 max + 0.02 m of each other.
+    No kernel launch."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+    from plviwo_tpu_torch.update import cam_helper
+
+    out = {}
+    for rep in ("GLOBAL_3D", "GLOBAL_FULL_INVERSE_DEPTH"):
+        sim = Simulator(SimConfig(duration=10.0, seed=1, sigma_pix=0.5, n_pts=45))
+        o = EstimatorOptions()
+        o.cam.feat_rep, o.cam.max_slam = rep, 8
+        o.cam.max_msckf, o.cam.sigma_pix, o.cam.min_track_length, o.cam.chi2_mult = 25, 0.5, 4, 5.0
+        system = VioSystem(o, device=dev)
+        examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+        active = []
+        r = drive_track(system, examples.track_events(sim),
+                        per_frame=lambda s: active.append(int(s._slam_valid.sum())))
+        rmse, _ = track_rmse(sim, system)
+        st = system.state
+        xyz = cam_helper.rep_to_xyz(st.slam_p[0], system.feat_rep).cpu().numpy()
+        ids, valid = st.slam_id[0].cpu().numpy(), st.slam_valid[0].cpu().numpy()
+        errs = [float(np.linalg.norm(xyz[k] - sim.landmarks[ids[k]]))
+                for k in np.flatnonzero(valid) if ids[k] < len(sim.landmarks)]
+        track_report(f"per-track SLAM, {rep}", system, r,
+                     f"; RMSE {rmse:.4f} m, at most {max(active)} landmarks active, "
+                     f"landmark errors {np.round(errs, 3).tolist()} m")
+        if not (max(active) >= 3 and rmse < 1.0 and errs and max(errs) < 2.0):
+            raise AssertionError(f"per-track SLAM ({rep}): missed tests/test_slam.py's gates")
+        out[rep] = dict(r, rmse=rmse)
+    rmse = {}
+    for joint, rep in ((True, "GLOBAL_FULL_INVERSE_DEPTH"), (False, "GLOBAL_3D")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rmse[joint], stats, system = examples.joint_update_replay(joint, slam=6, gps=True,
+                                                                  feat_rep=rep, device=dev)
+        torch.cuda.synchronize()
+        print(f"SLAM + GPS live replay ({'joint' if joint else 'sequential'}, {rep}): RMSE "
+              f"{rmse[joint]:.4f} m, stats {stats}, GPS {system.gps.stats}, landmarks active "
+              f"{int(system._slam_valid.sum())}, {time.perf_counter() - t0:.2f} s")
+        if not (bool(system.state.slam_valid.any()) and system.gps.initialized):
+            raise AssertionError("SLAM + GPS live replay: no landmark or no GPS init")
+    rj, rs = rmse[True], rmse[False]
+    if not (rj < 1.0 and rs < 1.0 and abs(rj - rs) < 0.2 * max(rj, rs) + 0.02):
+        raise AssertionError("SLAM + GPS live replay: missed tests/test_joint_update.py's "
+                             f"parity gate (joint {rj:.4f} m, sequential {rs:.4f} m)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1428,11 +1581,18 @@ def main() -> int:
     phase_track_stereo()
     orders = phase_track_orders(dev)
     track["order1"], track["order3"] = orders[1], orders[3]
+    track["lines"] = phase_track_lines(dev)
+    track["kaist_lines"] = phase_track_kaist_lines(dev)
+    slam = phase_track_slam(dev)
+    track["slam_3d"], track["slam_inverse_depth"] = slam["GLOBAL_3D"], slam[
+        "GLOBAL_FULL_INVERSE_DEPTH"]
     track_launches = {k: sum(r["launches"][k] for r in track.values())
                       for k in ("lk_pyramid", "msckf_gram_gate")}
     print("per-track path at B=1 on " + card + ": " + "; ".join(
         f"{name} p50 {r['p50_ms']:.3f} ms / p90 {r['p90_ms']:.3f} ms, {r['fps']:.2f} frames/s, "
-        f"{r['syncs_per_frame']:.2f} syncs a frame" for name, r in track.items()))
+        f"line stage median {r['stages']['line']:.3f} / mean {r['line_mean_ms']:.3f} ms, "
+        f"{r['syncs_per_frame']:.2f} syncs a frame (at most {r['reads_max']} reads)"
+        for name, r in track.items()))
 
     # one frame's two calls (points k = 3, lines k = 4): times summed, the
     # bound of their bytes and operations together
@@ -1498,6 +1658,10 @@ def main() -> int:
          "captured_frame": times(lk_frame)}
     ]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to end")
+    failed = [r["failed"] for r in track.values() if r.get("failed")]
+    if failed:
+        print("chip_smoke: failed: " + "; ".join(failed), file=sys.stderr)
+        return 1
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))

@@ -168,6 +168,22 @@ def marginalize_clone(state: FilterState, slot) -> FilterState:
     )
 
 
+def marginalize_slam_slot(state: FilterState, slot) -> FilterState:
+    """Free a SLAM landmark slot per sequence (reference: marginalize_slam,
+    StateHelper.cpp:202-213): zero its covariance rows and columns, mark it
+    invalid and its id -1.  slot: int, the same in every sequence."""
+    lo = state.layout
+    dev = state.cov.device
+    sel = (torch.arange(lo.max_slam, device=dev) == slot).expand(state.slam_valid.shape)
+    band = torch.zeros(state.cov.shape[:2], dtype=torch.bool, device=dev)
+    band[:, lo.slam_off:] = torch.repeat_interleave(sel, 3, dim=1)
+    return state.replace(
+        slam_valid=state.slam_valid & ~sel,
+        slam_id=torch.where(sel, -1, state.slam_id),
+        cov=torch.where(band[:, :, None] | band[:, None, :], 0.0, state.cov),
+    )
+
+
 def measurement_compress(H, r, mask):
     """Compress a tall stacked system to at most D rows (reference:
     measurement_compress_inplace, StateHelper.cpp:602-614): the masked rows'

@@ -58,6 +58,21 @@ def interpolate_rotation_jacobian(q0, q1, lam):
     return E @ R0, lJ @ Jli.transpose(-1, -2) - E, -(lJ @ Jli)
 
 
+def _powers(x, n: int):
+    """[x^0, x^1, ..., x^n] (...,n+1) by repeated products.
+
+    Each product is correctly rounded on every device, so the card and the
+    CPU build the same Vandermonde bit for bit.  A `pow` with a tensor
+    exponent is not correctly rounded on the card (x ** 1.0 is not always
+    x), and through these weights its rounding about doubled the per-track
+    filter's trajectory error on the card without wheel rows (ROADMAP.md,
+    hazards)."""
+    out = [torch.ones_like(x)]
+    for _ in range(n):
+        out.append(out[-1] * x)
+    return torch.stack(out, dim=-1)
+
+
 def _poly_weights(dts, dt_eval):
     """Weights of the order-n polynomial through the n clones after the
     anchor, and their time derivative: with the Vandermonde V (tau_i^j) in
@@ -68,10 +83,10 @@ def _poly_weights(dts, dt_eval):
     n = dts.shape[-1]
     scale = torch.clamp(dts[..., -1:], min=1e-9)
     j = torch.arange(1, n + 1, dtype=dts.dtype, device=dts.device)
-    V = (dts / scale)[..., :, None] ** j  # (...,n,n)
-    x = dt_eval[..., None] / scale
-    ev = x ** j
-    dev = j * x ** (j - 1) / scale
+    V = _powers(dts / scale, n)[..., 1:]  # (...,n,n)
+    xp = _powers(dt_eval / scale[..., 0], n)
+    ev = xp[..., 1:]
+    dev = j * xp[..., :-1] / scale
     V_inv, _ = torch.linalg.inv_ex(V)  # no singularity check, so no host sync
     return (ev[..., None, :] @ V_inv)[..., 0, :], (dev[..., None, :] @ V_inv)[..., 0, :]
 

@@ -24,28 +24,36 @@ interpolation error; the wheel window then runs clone to clone.
 
 The per-track path.  Each frame's tracked ids and pixels (a tracker's, or
 the simulator's data association) are undistorted on the host and appended
-to the feature database (`update/feature_db.py`).  Once the IMU covers a
-frame, `_process_pending` propagates, marginalizes the clones leaving the
-window (harvesting the tracks that still observe them first), clones, and
-updates: the MSCKF rows of the tracks that were lost or observe a clone
-about to leave, at poses interpolated over the clones by the polynomial of
-order `intr_order` (`core/interp.build_interp_table`), and the wheel rows
-of each new clone pair, all summed into one joint EKF update a frame (or
-one update per sensor with `joint_update=False`); then the GPS fixes the
-clones cover.  With `opts.dynamic_cloning`, frames between clones are
-skipped: their observations stay in the database and update later through
-interpolated poses, at the order the rate policy picks.  The host keeps
-mirrors of the clone ring's times, validity and keyframe flags, so the
-bookkeeping reads no device state; the device is read where the JAX driver
-must read it too (the accepted-feature count, each wheel pair's chi^2, the
-recorded pose, the calibration estimates when they are estimated online).
+to the feature database (`update/feature_db.py`); tracked line segments go
+to the line database with each segment's vanishing-point class from the
+orientation at feed time.  Once the IMU covers a frame, `_process_pending`
+propagates, marginalizes the clones leaving the window (harvesting the point
+and line tracks that still observe them first), clones, and updates: the
+MSCKF rows of the tracks that were lost or observe a clone about to leave,
+at poses interpolated over the clones by the polynomial of order
+`intr_order` (`core/interp.build_interp_table`); the in-state SLAM landmarks
+(`cam.max_slam > 0`, xyz or inverse depth: their own gated update, then the
+delayed init of new ones); the line rows of the line tracks that were lost
+or observe a clone about to leave (triangulated along their majority
+vanishing-point axis, with point-line-coupled rows under `cam.use_plc`);
+and the wheel rows of each new clone pair, all summed into one joint EKF
+update a frame (or one update per sensor with `joint_update=False`); then
+the GPS fixes the clones cover.  With `opts.dynamic_cloning`, frames between
+clones are skipped: their observations stay in the database and update
+later through interpolated poses, at the order the rate policy picks.  The
+host keeps mirrors of the clone ring's times, validity and keyframe flags
+and of the SLAM slots' ids and validity, so the bookkeeping reads no device
+state; the device is read where the JAX driver must read it too (the
+accepted-feature and accepted-line counts, the orientation a line frame is
+classified at, the SLAM chi^2 vector and each new landmark's triangulation
+and correction, each wheel pair's chi^2, the recorded pose, the calibration
+estimates when they are estimated online).
 
-Not ported, and refused with NotImplementedError rather than skipped:
-per-track lines and SLAM landmarks (`feed_camera(line_ids=...)`,
-`cam.max_slam > 0`: ROADMAP A9b), the CPI-interpolated poses
-(`use_imu_res`), ZUPT and the IMU(+wheel) auto-initialization (A9c), and
-the native feature store (A9d; the Python store is used).  Callers seed the
-state with `initialize_from`.
+Not ported: the CPI-interpolated poses (`use_imu_res`), ZUPT and the
+IMU(+wheel) auto-initialization (ROADMAP A9c), refused with
+NotImplementedError rather than skipped; the native feature store and the
+host trackers (A9d: the Python store is used, and the caller feeds tracks).
+Callers seed the state with `initialize_from`.
 """
 
 from __future__ import annotations
@@ -62,8 +70,9 @@ from ..ops import cam as cam_ops
 from ..ops.chi2 import _TABLE as CHI2_TABLE
 from ..update import cam_helper
 from ..update import gps as gps_up
+from ..update import lines as line_up
 from ..update import wheel as wheel_up
-from ..update.feature_db import FeatureDatabase
+from ..update.feature_db import FeatureDatabase, LineDatabase
 from ..utils.timing import TimeChecker
 from . import dynamic_cloning as dynclone
 from . import ekf, propagator
@@ -77,8 +86,6 @@ F64 = torch.float64
 IMU_PAD = 64  # max IMU samples per propagate call
 WHEEL_PAD = 32  # wheel samples per frame window (64 clone to clone, dynamic cloning)
 GPS_PAD = 4  # GPS fixes per frame
-# landmark error-state representations (the JAX package's cam_helper.REP_CODES)
-REP_CODES = {"GLOBAL_3D": 0, "GLOBAL_FULL_INVERSE_DEPTH": 1}
 # per-frame metrics read back to the host, in this order, then time, q, p
 _METRICS = ("accepted", "harvested", "lines_accepted", "line_harvested", "wheel_accepted",
             "gps_accepted")
@@ -112,7 +119,9 @@ class VioSystem:
         self.gravity = torch.tensor([0.0, 0.0, op.gravity_mag], dtype=F64, device=self.device)
         self.sigmas = (op.imu.sigma_w, op.imu.sigma_a, op.imu.sigma_wb, op.imu.sigma_ab)
         self.distortion_model = cam_ops.RADTAN
-        self.feat_rep = REP_CODES.get(op.cam.feat_rep, 0)
+        # landmark error-state representation (reference feat_rep option,
+        # CamHelper.cpp:21-56): GLOBAL_3D or GLOBAL_FULL_INVERSE_DEPTH
+        self.feat_rep = cam_helper.REP_CODES.get(op.cam.feat_rep, 0)
         self.wheel_buf = wheel_up.WheelBuffer()
         self.tc = TimeChecker()
         self.frame_timing = {}  # ms of the latest frame: device step, host work, GPS
@@ -137,6 +146,7 @@ class VioSystem:
         # the per-track path: feature store, frames waiting for IMU coverage,
         # the joint update's row collector, the wheel pairs' bookkeeping
         self.fdb = FeatureDatabase()
+        self.ldb = LineDatabase()
         self.pending_frames: deque = deque()
         self._joint_rows = None
         self.chi2_table = torch.as_tensor(CHI2_TABLE, dtype=F64, device=self.device)
@@ -156,6 +166,12 @@ class VioSystem:
         self._cam_k = np.tile([1.0, 1.0, 0, 0, 0, 0, 0, 0], (self.layout.n_cams, 1))
         self._cam_dt0 = 0.0
         self._wheel_dt = 0.0
+        # host mirrors of the SLAM slots' ids and validity, and each slot's
+        # count of consecutive failed gates
+        S = self.layout.max_slam
+        self._slam_id = np.full(S, -1, dtype=np.int64)
+        self._slam_valid = np.zeros(S, dtype=bool)
+        self._slam_fail = np.zeros(S, dtype=np.int32)
         self.host_reads = 0  # device -> host reads made by the per-track path
 
     # ------------------------------------------------------------------
@@ -230,6 +246,8 @@ class VioSystem:
         self._clone_t[:] = np.inf
         self._clone_valid[:] = False
         self._clone_kf[:] = False
+        self._slam_id[:] = -1
+        self._slam_valid[:] = False
         self.initialized = True
 
     # ------------------------------------------------------------------
@@ -251,14 +269,8 @@ class VioSystem:
                              "another instance")
         self._path = path
 
-    def _per_track_checks(self, line_ids):
+    def _per_track_checks(self):
         op = self.opts
-        if line_ids is not None:
-            raise NotImplementedError("per-track lines (feed_camera(line_ids=...)) are not "
-                                      "ported yet (ROADMAP A9b)")
-        if op.cam.max_slam > 0:
-            raise NotImplementedError("SLAM landmarks (cam.max_slam > 0) are not ported yet "
-                                      "(ROADMAP A9b)")
         if op.use_imu_res:
             raise NotImplementedError("CPI-interpolated poses (use_imu_res) are not ported yet "
                                       "(ROADMAP A9c)")
@@ -268,17 +280,39 @@ class VioSystem:
         k = torch.from_numpy(self._cam_k_now()[cam])
         return cam_ops.undistort_radtan(torch.from_numpy(uvs), k).numpy()
 
+    def _classify_lines(self, segs):
+        """Vanishing-point classes (L,) of raw pixel segments (L,4) from the
+        current orientation and camera extrinsic (one device read), computed
+        on the host."""
+        qc = torch.from_numpy(self._host(torch.cat([self.state.q[0], self.state.cam_q[0, 0]])))
+        vps, vp_valid = line_up.vanishing_points(qc[None, :4], qc[None, 4:],
+                                                 torch.from_numpy(self._cam_k_now()[0])[None])
+        return line_up.classify_lines(torch.from_numpy(segs)[None], vps, vp_valid)[0].numpy()
+
     def feed_camera(self, t, ids, uvs, line_ids=None, line_segs=None, line_pids=None):
         """One camera frame of tracked features: persistent ids (N,) and raw
         pixels (N,2), appended to the feature database with their
-        undistorted normalized coordinates; the frame is processed once the
-        IMU covers it (see the module docstring).  line_ids, line_segs and
-        line_pids (per-track lines) are ROADMAP A9b."""
-        self._per_track_checks(line_ids)
+        undistorted normalized coordinates, and optionally tracked line
+        segments: ids (L,), raw pixel endpoints (L,4) and per line the ids of
+        its attached points (line_pids, for the point-line-coupled rows of
+        cam.use_plc), appended to the line database with each segment's
+        vanishing-point class from the current orientation; the frame is
+        processed once the IMU covers it (see the module docstring)."""
+        self._per_track_checks()
         uvs = np.atleast_2d(np.asarray(uvs, dtype=np.float64))
         if len(ids) > 0:
             for fid, uv, uvn in zip(ids, uvs, self._undistort(uvs, 0)):
                 self.fdb.update(int(fid), float(t), uv, uvn)
+        if line_ids is not None and len(line_ids) > 0:
+            segs = np.atleast_2d(np.asarray(line_segs, dtype=np.float64))
+            n = len(line_ids)
+            segs_n = self._undistort(segs.reshape(2 * n, 2), 0).reshape(n, 4)
+            # the frame's classes from the orientation now (reference:
+            # UpdaterCamera.cpp:100-104); the update votes over them
+            cls = self._classify_lines(segs) if self.initialized else np.zeros(n, dtype=np.int64)
+            pids = line_pids if line_pids is not None else [()] * n
+            for lid, seg, seg_n, pid, ci in zip(line_ids, segs, segs_n, pids, cls):
+                self.ldb.update(int(lid), float(t), seg, seg_n, point_ids=pid, D=int(ci))
         self.pending_frames.append(float(t))
         if self.initialized:
             self._process_pending()
@@ -289,7 +323,7 @@ class VioSystem:
         cameras (reference: TrackKLT::feed_stereo, TrackKLT.cpp:202-393):
         the right camera's observations enter the same tracks under camera
         1, and the MSCKF rows then carry a camera per observation."""
-        self._per_track_checks(line_ids)
+        self._per_track_checks()
         uvs1 = np.atleast_2d(np.asarray(uvs1, dtype=np.float64))
         if len(ids1) > 0:
             uvns1 = self._undistort(uvs1, 1 % self.layout.n_cams)
@@ -598,7 +632,13 @@ class VioSystem:
                 self._joint_rows = []
             tc.ding("cam")
             self._msckf_update(t_frame, marg_times)
+            if self.layout.max_slam > 0:
+                self._slam_update(t_frame)
             ms_cam = 1e3 * tc.dong("cam")
+            tc.ding("line")
+            if op.cam.use_lines:
+                self._line_update(t_frame, marg_times)
+            ms_line = 1e3 * tc.dong("line")
             tc.ding("wheel")
             if op.wheel.enabled:
                 self._wheel_update()
@@ -618,12 +658,18 @@ class VioSystem:
                     self.state = self.state.replace(
                         clone_keyframe=torch.zeros_like(self.state.clone_keyframe))
                     self._clone_kf[:] = False
+                    if self.feat_rep != cam_helper.REP_GLOBAL_3D:
+                        # the rotation into ENU marginalized every landmark
+                        self._slam_id[:] = -1
+                        self._slam_valid[:] = False
             self._db_cleanup(t_frame - op.window_size - 0.05)
+            self.ldb.cleanup(t_frame - op.window_size - 0.05)
             self.imu_buf.prune(t_frame - op.window_size - 0.5)
             # host-clock stages: device work queued in a stage is waited for
             # at the next read (the accepted count in "cam", the pose at the
             # end of "frame")
-            self.frame_timing = {"propagate": ms_prop, "cam": ms_cam, "wheel": ms_wheel, "update": ms_update,
+            self.frame_timing = {"propagate": ms_prop, "cam": ms_cam, "line": ms_line,
+                                 "wheel": ms_wheel, "update": ms_update,
                                  "frame": 1e3 * (time.perf_counter() - t_host0)}
 
     def _augment_clone(self):
@@ -651,9 +697,9 @@ class VioSystem:
         """Free clone slots: drop clones older than the window, and the oldest
         one if the ring is full (reference: marginalize_old_clone,
         StateHelper.cpp:214-233).  Tracks still observing a dying clone are
-        harvested first with a final MSCKF update; a mature track still
-        holding such an observation afterwards is counted in
-        stats["lost_marg_obs"] (it must stay 0)."""
+        harvested first with a final MSCKF (and line) update; a mature track
+        outside the SLAM slots still holding such an observation afterwards is
+        counted in stats["lost_marg_obs"] (it must stay 0)."""
         valid, times, keyframe = self._clone_valid, self._clone_t, self._clone_kf
         t_min = t_now - self.opts.window_size
         drop = valid & ~keyframe & (times < t_min)
@@ -667,13 +713,18 @@ class VioSystem:
         drop_times = {float(times[s]) for s in drop_slots}
         if any(any(ti in drop_times for ti in tr.times) for tr in self.fdb.tracks.values()):
             self._msckf_update(t_now, drop_times)
+        if self.opts.cam.use_lines and any(any(ti in drop_times for ti in tr.times)
+                                           for tr in self.ldb.tracks.values()):
+            self._line_update(t_now, drop_times)
         # immature tracks lose only their pre-window head, as in the
         # reference's remove_unusable_measurements
         min_len = self.opts.cam.min_track_length
         usable_times = {float(times[i]) for i in np.nonzero(valid & ~drop)[0]} | drop_times
+        slam_fids = self._slam_fids()
         self.stats["lost_marg_obs"] += sum(
-            1 for tr in self.fdb.tracks.values()
-            if sum(1 for ti in tr.times if ti in usable_times) >= min_len
+            1 for fid, tr in self.fdb.tracks.items()
+            if fid not in slam_fids
+            and sum(1 for ti in tr.times if ti in usable_times) >= min_len
             and any(ti in drop_times for ti in tr.times))
         for slot in drop_slots:
             self.state = ekf.marginalize_clone(self.state, int(slot))
@@ -838,7 +889,8 @@ class VioSystem:
         cam.max_msckf tracks (longest first), triangulated at the table's
         poses, one 2-row system per observation, nullspace-projected and
         chi^2-gated per feature; the rows join the frame's joint update (or
-        update alone).  The tracks are consumed."""
+        update alone).  The tracks are consumed.  SLAM landmarks' tracks are
+        left to `_slam_update`."""
         op = self.opts.cam
         lo = self.layout
         valid, times = self._clone_valid, self._clone_t
@@ -854,7 +906,10 @@ class VioSystem:
             return ti in tmap or t_lo < ti < t_hi
 
         cands = []
+        slam_fids = self._slam_fids()  # SLAM landmarks update in the state, not as MSCKF rows
         for fid, tr in self.fdb.tracks.items():
+            if fid in slam_fids:
+                continue
             n_usable = sum(1 for ti in tr.times if usable(ti))
             if n_usable < op.min_track_length:
                 continue
@@ -957,6 +1012,275 @@ class VioSystem:
             self.stats["updates"] += 1
         # consumed: MSCKF features are fire-and-forget
         self.fdb.remove(used_fids)
+
+    # ------------------------------------------------------------------
+    # SLAM landmarks and the line update
+    # ------------------------------------------------------------------
+    def _slam_fids(self):
+        return {int(x) for x in self._slam_id if x >= 0}
+
+    def _marginalize_slam(self, slot):
+        self.state = ekf.marginalize_slam_slot(self.state, int(slot))
+        self._slam_id[slot] = -1
+        self._slam_valid[slot] = False
+        self._slam_fail[slot] = 0
+
+    def _slam_update(self, t_frame):
+        """In-state SLAM landmarks (reference: slam_update, slam_init and
+        marginalize_slam_features, UpdaterCamera.cpp:118-137, 296-369).
+        (a) A landmark whose track was lost is marginalized; the others update
+        with the frame's observation (2 rows each at the new clone, the
+        landmark's columns chained through its representation), gated one by
+        one in one batched chi^2, in one EKF update at sigma_pix^2; a
+        landmark failing its gate more than 3 times in a row is marginalized
+        and its track removed.  (b) Free slots take up to 5 new landmarks,
+        the longest tracks first with at least min(10, max(window x
+        clone_freq - 1, 4)) observations at clone times: each is
+        triangulated, and `ekf.delayed_init` initializes it in the
+        representation cam.feat_rep from its interpolated-pose rows, unless
+        its correction is not finite or larger than 5."""
+        op = self.opts.cam
+        lo = self.layout
+        S = lo.max_slam
+        valid, times = self._clone_valid, self._clone_t
+        tmap = {float(times[i]): i for i in np.nonzero(valid)[0]}
+        rep = self.feat_rep
+        sigma2 = op.sigma_pix**2
+        model = int(self.distortion_model)
+
+        # (a) update the active landmarks with the current frame's observation
+        upd_slots, upd_uv = [], []
+        for slot in np.nonzero(self._slam_valid)[0]:
+            tr = self.fdb.tracks.get(int(self._slam_id[slot]))
+            if tr is None or tr.times[-1] < t_frame - 1e-9:
+                self._marginalize_slam(slot)  # lost
+            elif t_frame in tmap:
+                upd_slots.append(int(slot))
+                upd_uv.append(tr.uvs[-1])
+        if upd_slots:
+            n = len(upd_slots)
+            f = np.zeros((S, 3))  # uv, valid
+            f[:n, :2] = upd_uv
+            f[:n, 2] = 1.0
+            idx = np.zeros((2, S), dtype=np.int64)  # slot, the new clone's slot
+            idx[0, :n] = upd_slots
+            idx[1] = tmap[t_frame]
+            f, idx = self._tensor(f)[None], self._tensor(idx, torch.long)[:, None]
+            st = self.state
+            slots, ob_s = idx[0], idx[1][..., None]
+            Hx, r, _ = cam_helper.slam_systems_batch(
+                cam_helper.rep_to_xyz(cam_helper.gather_slots(st.slam_p, slots), rep), slots,
+                f[..., None, 0:2], ob_s, f[..., 2:3] > 0.5,
+                st.clone_q, st.clone_p, st.clone_q_fej, st.clone_p_fej,
+                st.cam_q[:, 0], st.cam_p[:, 0], st.cam_k[:, 0], model, lo.n_clones, lo.clone_off,
+                lo.slam_off, lo.dim,
+                rep_jac=cam_helper.rep_jacobian(cam_helper.gather_slots(st.slam_p_fej, slots), rep))
+            # every landmark's chi^2 in one batch and one read
+            rows = np.zeros((S, 2), dtype=bool)
+            rows[:n] = True
+            chis = self._host(ekf.chi2(st.cov.expand(S, -1, -1), Hx[0], r[0],
+                                       torch.full_like(r[0], sigma2),
+                                       self._tensor(rows, torch.bool)))
+            keep = chis[:n] < float(CHI2_TABLE[2]) * op.chi2_mult
+            for slot, k in zip(upd_slots, keep):
+                self._slam_fail[slot] = 0 if k else self._slam_fail[slot] + 1
+            rows[:n] &= keep[:, None]
+            if rows.any():
+                M = 2 * S
+                self.state = ekf.update(st, Hx.reshape(1, M, lo.dim), r.reshape(1, M),
+                                        torch.full((1, M), sigma2, dtype=F64, device=self.device),
+                                        self._tensor(rows.reshape(1, M), torch.bool))
+            # marginalize repeat offenders (reference: update_fail_count)
+            for slot in upd_slots:
+                if self._slam_fail[slot] > 3:
+                    fid = int(self._slam_id[slot])
+                    self._marginalize_slam(slot)
+                    self.fdb.remove([fid])
+
+        # (b) initialize new landmarks into free slots
+        free = [int(s) for s in np.nonzero(~self._slam_valid)[0]]
+        if not free:
+            return
+        active = self._slam_fids()
+        min_len = min(10, max(int(self.opts.window_size * self.opts.clone_freq) - 1, 4))
+        cands = []
+        for fid, tr in self.fdb.tracks.items():
+            if fid in active or tr.times[-1] < t_frame - 1e-9:
+                continue
+            n_in = sum(1 for ti in tr.times if ti in tmap)
+            if n_in >= min_len:
+                cands.append((n_in, fid))
+        cands.sort(reverse=True)
+        O = lo.n_clones
+        for _, fid in cands[:min(len(free), 5)]:
+            tr = self.fdb.tracks[fid]
+            f = np.zeros((O, 5))  # uv, uvn, valid
+            s0 = np.zeros(O, dtype=np.int64)
+            j = 0
+            for ti, u, un in zip(tr.times, tr.uvs, tr.uvns):
+                if ti in tmap and j < O:
+                    f[j] = [*u, *un, 1.0]
+                    s0[j] = tmap[ti]
+                    j += 1
+            f, s0 = self._tensor(f)[None, None], self._tensor(s0, torch.long)[None, None]
+            obs_valid = f[..., 4] > 0.5
+            st = self.state
+            cam_q, cam_p, cam_k = st.cam_q[:, 0], st.cam_p[:, 0], st.cam_k[:, 0]
+            p_f, ok, _ = cam_helper.triangulate_batch(
+                f[..., 2:4], cam_helper.gather_slots(st.clone_q, s0),
+                cam_helper.gather_slots(st.clone_p, s0), obs_valid, cam_q, cam_p)
+            if not self._host(ok)[0, 0]:
+                continue
+            Hx, Hf, r, rowmask = cam_helper.point_systems_interp_batch(
+                p_f, f[..., 0:2], s0, s0, torch.zeros_like(f[..., 4]), obs_valid,
+                st.clone_q, st.clone_p, st.clone_q_fej, st.clone_p_fej, cam_q, cam_p, cam_k,
+                model, lo.n_clones, lo.clone_off, lo.dim)
+            slot = free.pop(0)
+            # delayed init in the landmark's error-state representation:
+            # H_n = Hf d(xyz)/d(rep) (CamHelper.cpp:21-56)
+            rep0 = cam_helper.xyz_to_rep(p_f[:, 0], rep)
+            m = rowmask[:, 0].to(F64)
+            new_cov, dx_full, dn, *_ = ekf.delayed_init(
+                st.cov, Hx[:, 0] * m[..., None],
+                Hf[:, 0] @ cam_helper.rep_jacobian(rep0, rep) * m[..., None], r[:, 0] * m,
+                torch.full_like(m, sigma2), lo.slam(slot), 3)
+            dn_h = self._host(dn)[0]
+            if not np.all(np.isfinite(dn_h)) or float(np.linalg.norm(dn_h)) > 5.0:
+                free.insert(0, slot)
+                continue
+            st2 = ekf.apply_dx(st, dx_full)
+            sel = torch.arange(S, device=self.device)[None] == slot
+            new_rep = (rep0 + dn)[:, None]
+            self.state = st2.replace(
+                cov=new_cov,
+                slam_p=torch.where(sel[..., None], new_rep, st2.slam_p),
+                slam_p_fej=torch.where(sel[..., None], new_rep, st2.slam_p_fej),
+                slam_valid=st2.slam_valid | sel,
+                slam_id=torch.where(sel, fid, st2.slam_id))
+            self._slam_id[slot] = fid
+            self._slam_valid[slot] = True
+            if not free:
+                break
+
+    def _line_update(self, t_frame, marg_times):
+        """MSCKF line update (reference: UpdaterCamera::lines_update,
+        UpdaterCamera.cpp:371-464) of the line tracks with >= 3 observations
+        at clone times that were lost or observe a clone in marg_times (at
+        most cam.max_lines, the longest first).  Each line is triangulated
+        along the world axis of its majority vanishing-point class
+        (direction-constrained least squares) or, unclassified, from its
+        plane pairs (>= 3 of them); its rows (the two endpoints per
+        observation, plus the attached points' with cam.use_plc) are dropped
+        when their mean |r| exceeds 4.0 (classified) or 2.5 times
+        sigma_pix_line, then nullspace-projected against the line's 4 dof and
+        chi^2-gated per line (`msckf_project_and_gate`, plain torch: no TPU
+        kernel lies on this path); they join the frame's joint update (or
+        update alone).  The tracks are consumed."""
+        op = self.opts.cam
+        lo = self.layout
+        valid, times = self._clone_valid, self._clone_t
+        tmap = {float(times[i]): i for i in np.nonzero(valid)[0]}
+        cands = []
+        for lid, tr in self.ldb.tracks.items():
+            n_in = sum(1 for ti in tr.times if ti in tmap)
+            if n_in >= 3 and (tr.times[-1] < t_frame or any(ti in marg_times for ti in tr.times)):
+                cands.append((n_in, lid))
+        if not cands:
+            return
+        cands.sort(reverse=True)
+        cands = cands[:op.max_lines]
+        L, O = op.max_lines, lo.n_clones
+        P = op.max_plc if op.use_plc else 0
+        seg_uv = np.zeros((L, O, 4))
+        seg_uvn = np.zeros((L, O, 4))
+        obs_slot = np.zeros((L, O), dtype=np.int64)
+        obs_valid = np.zeros((L, O), dtype=bool)
+        plc_uv = np.zeros((L, O, P, 2))
+        plc_valid = np.zeros((L, O, P), dtype=bool)
+        line_dir = np.tile([1.0, 0.0, 0.0, 0.0], (L, 1))  # the class's world axis, classified
+        used = []
+        for i, (_, lid) in enumerate(cands):
+            tr = self.ldb.tracks[lid]
+            j = 0
+            for k, (ti, seg, seg_n) in enumerate(zip(tr.times, tr.segs, tr.segs_n)):
+                if ti in tmap and j < O:
+                    seg_uv[i, j] = seg
+                    seg_uvn[i, j] = seg_n
+                    obs_slot[i, j] = tmap[ti]
+                    obs_valid[i, j] = True
+                    if P and k < len(tr.point_ids):
+                        # the attached points' measured pixels at this time
+                        # (reference: LineHelper.cpp:879-890)
+                        m = 0
+                        for pid in tr.point_ids[k]:
+                            if m >= P:
+                                break
+                            ptr = self.fdb.tracks.get(int(pid))
+                            if ptr is None or ti not in ptr.times:
+                                continue
+                            plc_uv[i, j, m] = ptr.uvs[ptr.times.index(ti)]
+                            plc_valid[i, j, m] = True
+                            m += 1
+                    j += 1
+            # the class by majority over the classes recorded at feed time
+            cls = tr.majority_class()
+            line_dir[i] = [*np.eye(3)[max(cls - 1, 0)], float(cls > 0)]
+            used.append(lid)
+
+        # the host arrays in one copy (floats) and one (slots)
+        parts = [seg_uv, seg_uvn, obs_valid[..., None], plc_uv.reshape(L, O, 2 * P), plc_valid,
+                 np.broadcast_to(line_dir[:, None], (L, O, 4))]
+        f = self._tensor(np.concatenate([np.asarray(x, np.float64) for x in parts], -1))[None]
+        slot = self._tensor(obs_slot, torch.long)[None]
+        seg_uv_t, seg_uvn_t, valid_t = f[..., 0:4], f[..., 4:8], f[..., 8] > 0.5
+        plc_uv_t = f[..., 9:9 + 2 * P].unflatten(-1, (P, 2))
+        plc_valid_t = f[..., 9 + 2 * P:9 + 3 * P] > 0.5
+        dir_G, has_cls = f[:, :, 0, 9 + 3 * P:12 + 3 * P], f[:, :, 0, 12 + 3 * P] > 0.5
+
+        st = self.state
+        cq = cam_helper.gather_slots(st.clone_q, slot)
+        cp = cam_helper.gather_slots(st.clone_p, slot)
+        cam_q, cam_p, cam_k = st.cam_q[:, 0], st.cam_p[:, 0], st.cam_k[:, 0]
+        # triangulation: direction-constrained for classified lines, two
+        # planes otherwise (with >= 3 supporting plane pairs: the weakest
+        # geometry)
+        n2, v2, ok2, pair_count = line_up.triangulate_two_plane(seg_uvn_t, cq, cp, valid_t,
+                                                               cam_q, cam_p)
+        ok2 = ok2 & (pair_count >= 3)
+        nd, vd, okd = line_up.triangulate_direction_ls(seg_uvn_t, cq, cp, valid_t, cam_q, cam_p,
+                                                       dir_G)
+        use_dir = has_cls & okd
+        n_G = torch.where(use_dir[..., None], nd, n2)
+        v_G = torch.where(use_dir[..., None], vd, v2)
+        ok = torch.where(use_dir, okd, ok2)
+        Hx, Hl, r, rowmask = line_up.line_systems_batch_plc(
+            n_G, v_G, seg_uv_t, plc_uv_t, plc_valid_t, slot, valid_t,
+            st.clone_q, st.clone_p, st.clone_q_fej, st.clone_p_fej, cam_q, cam_p, cam_k,
+            lo.n_clones, lo.clone_off, lo.dim)
+        rowmask = rowmask & ok[..., None]
+        # reprojection-quality gate: the rows' mean |r| against the noise,
+        # looser for classified lines (multiplied, as in the JAX package)
+        r_mean = (torch.sum(torch.abs(r) * rowmask, dim=-1)
+                  / torch.clamp(torch.sum(rowmask, dim=-1), min=1))
+        gate_mult = 2.5 + 1.5 * use_dir.to(F64)
+        rowmask = rowmask & (r_mean < gate_mult * op.sigma_pix_line)[..., None]
+        sigma2 = op.sigma_pix_line**2
+        Hn, rn, rowvalid, line_ok = cam_helper.msckf_project_and_gate(
+            Hx, Hl, r, rowmask, st.cov, sigma2, self.chi2_table, op.chi2_mult)
+        n_ok = int(self._host(line_ok.sum()))
+        self.stats["line_accept"] += n_ok
+        self.stats["line_reject"] += len(cands) - n_ok
+        if n_ok:
+            M = L * Hn.shape[2]
+            H_all, r_all = Hn.reshape(1, M, lo.dim), rn.reshape(1, M)
+            mask_all = rowvalid.reshape(1, M)
+            if self._joint_rows is not None:
+                s = float(np.sqrt(sigma2))
+                self._joint_rows.append((H_all / s, r_all / s, mask_all))
+            else:
+                Hc, rc, cmask = ekf.measurement_compress(H_all, r_all, mask_all)
+                self.state = ekf.update(self.state, Hc, rc, torch.full_like(rc, sigma2), cmask)
+        self.ldb.remove(used)
 
     # ------------------------------------------------------------------
     # telemetry (reference: SystemManager::print_status/print_final_report,

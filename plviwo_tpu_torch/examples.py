@@ -23,6 +23,7 @@ import torch
 
 from .core.layout import StateLayout
 from .core.state import CUDA, FilterState, make_state
+from .update import lines as line_up
 
 SIGMA_LINE = 2.0
 WHEEL_NOISE = (0.2, 0.5, 0.1)  # KAIST Wheel3DAng noise (config_wheel.yaml)
@@ -435,23 +436,41 @@ def live_events(sim, t0: float, n_frames: int, enu=None, stereo: bool = False):
     return events
 
 
-def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = False):
+def attached_points(segs, ids, uvs):
+    """Per segment (L,4), the ids of the points (ids (N,), uvs (N,2)) that
+    `update.lines.assign_points_to_lines` attaches to it: line_pids for
+    `VioSystem.feed_camera`."""
+    A = line_up.assign_points_to_lines(
+        torch.as_tensor(np.asarray(segs, np.float64).reshape(-1, 4))[None],
+        torch.as_tensor(np.asarray(uvs, np.float64).reshape(-1, 2))[None],
+        torch.ones((1, len(ids)), dtype=torch.bool))[0].numpy()
+    return [[int(i) for i in np.asarray(ids)[row]] for row in A]
+
+
+def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = False,
+                 lines: bool = False, plc: bool = False):
     """The per-track path's sensor stream as run_sim replays it without
     images: the simulator's data association at every camera time (with
-    stereo the right camera's after the left's, frame by frame), then the
-    wheel samples, then the GPS fixes (world frame = ENU), all drawn in
-    that order after the IMU stream, as the JAX driver draws them; then per
-    IMU sample the fixes, wheel samples and frames due by then, then the
-    sample itself.  Works with the port's simulator and the JAX package's.
-    Returns [(kind, args)] with kind in "gps", "wheel", "camera", "stereo",
-    "imu": the arguments of VioSystem.feed_gps_enu, feed_wheel,
-    feed_camera, feed_stereo and feed_imu."""
+    stereo the right camera's after the left's, with lines then the lines'
+    (`line_frame`), frame by frame), then the wheel samples, then the GPS
+    fixes (world frame = ENU), all drawn in that order after the IMU
+    stream, as the JAX driver draws them; then per IMU sample the fixes,
+    wheel samples and frames due by then, then the sample itself.  With plc
+    each frame's lines also carry their attached points (`attached_points`).
+    Works with the port's simulator and the JAX package's.  Returns
+    [(kind, args)] with kind in "gps", "wheel", "camera", "stereo", "imu":
+    the arguments of VioSystem.feed_gps_enu, feed_wheel, feed_camera,
+    feed_stereo and feed_imu."""
     imu_t, imu_w, imu_a = sim.imu_stream()
-    if stereo:
-        cams = [("stereo", (float(t),) + sim.cam_frame(t, cam=0) + sim.cam_frame(t, cam=1))
-                for t in sim.cam_times()]
-    else:
-        cams = [("camera", (float(t),) + sim.cam_frame(t)) for t in sim.cam_times()]
+
+    def frame(t):
+        out = sim.cam_frame(t, cam=0) + (sim.cam_frame(t, cam=1) if stereo else ())
+        if lines:
+            lids, segs = sim.line_frame(t)
+            out += (lids, segs) + ((attached_points(segs, *out[:2]),) if plc else ())
+        return ("stereo" if stereo else "camera", (float(t),) + out)
+
+    cams = [frame(t) for t in sim.cam_times()]
     wheels = ([("wheel", (float(t),) + tuple(sim.wheel_sample(t))) for t in sim.wheel_times()]
               if wheel else [])
     fixes = [("gps", (float(t), sim.gps_sample(t))) for t in sim.gps_times()] if gps else []
@@ -463,6 +482,51 @@ def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = Fal
                 idx[k] += 1
         events.append(("imu", (float(imu_t[i]), imu_w[i], imu_a[i])))
     return events
+
+
+def joint_update_replay(joint: bool, slam: int = 0, gps: bool = False, feat_rep="GLOBAL_3D",
+                        device=CUDA):
+    """tests/test_joint_update.py's live replay through the port: 6 s of
+    points, lines and wheel (6 lines and 12 MSCKF features an update), with
+    `slam` landmark slots in the representation feat_rep and GPS fixes in the
+    world frame, one joint update a frame or sequential updates; the
+    simulator's draws in that test's order (wheel samples, frames with their
+    lines, fixes).  Returns (RMSE of the positions, stats, the VioSystem)."""
+    from .config.options import EstimatorOptions
+    from .core.system import VioSystem
+    from .sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=6.0, seed=4, sigma_pix=0.5, n_pts=24, n_lines=10))
+    o = EstimatorOptions()
+    o.joint_update, o.clone_freq = joint, 10
+    o.cam.n_pts, o.cam.max_msckf, o.cam.sigma_pix = 30, 12, 0.5
+    o.cam.min_track_length, o.cam.chi2_mult = 4, 5.0
+    o.cam.use_lines, o.cam.max_lines, o.cam.max_slam, o.cam.feat_rep = True, 6, slam, feat_rep
+    o.wheel.enabled = True
+    if gps:
+        o.gps.enabled, o.gps.noise, o.gps.init_distance = True, 0.5, 3.0
+    s = VioSystem(o, device=device)
+    c = sim.cfg
+    s.set_calibration(c.intrinsics, c.cam_ext_q, c.cam_ext_p)
+    s.set_wheel_calibration(c.wheel_ext_q, c.wheel_ext_p, [c.wheel_rl, c.wheel_rr, c.wheel_base])
+    imu_t, imu_w, imu_a = sim.imu_stream()
+    kin0 = sim.gt_kin(imu_t[0])
+    q0, p0 = sim.gt_pose(imu_t[0])
+    s.initialize_from(float(imu_t[0]), np.asarray(q0), p0, kin0["v_IinG"], sim.bg_true[0],
+                      sim.ba_true[0])
+    wheel = [(float(t),) + sim.wheel_sample(t) for t in sim.wheel_times()]
+    frames = [(float(t),) + sim.cam_frame(t) + sim.line_frame(t) for t in sim.cam_times()]
+    fixes = [(float(t), sim.gps_sample(t)) for t in sim.gps_times()] if gps else []
+    nxt = [0, 0, 0]
+    for i in range(len(imu_t)):
+        for k, (items, fn) in enumerate(((wheel, s.feed_wheel), (frames, s.feed_camera),
+                                         (fixes, s.feed_gps_enu))):
+            while nxt[k] < len(items) and items[nxt[k]][0] <= imu_t[i]:
+                fn(*items[nxt[k]])
+                nxt[k] += 1
+        s.feed_imu(imu_t[i], imu_w[i], imu_a[i])
+    errs = [np.linalg.norm(p - sim.gt_kin(t)["p_IinG"]) for t, _, p in s.traj]
+    return float(np.sqrt(np.mean(np.square(errs)))), dict(s.stats), s
 
 
 def feed(system, kind: str, args):

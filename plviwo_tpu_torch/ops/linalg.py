@@ -113,18 +113,26 @@ def inv_small(A):
 
 
 def chol_equilibrated(G, jitter=3e-6):
-    """(L, valid): lower factor with L L^T = G + jitter*diag(G), in float64.
+    """(L, valid): lower factor with L L^T = G + jitter*diag(G) over the
+    valid rows and columns, in float64.
 
     The unit-diagonal equilibration and the jitter regularize the null
     directions of empty clone slots (a plain Cholesky of the singular Gram
     fails); rows a failed factor leaves non-finite are replaced by identity
     rows, as the JAX version does.  valid marks rows whose Gram diagonal is
-    numerically nonzero."""
+    numerically nonzero.  The other rows and columns are identity in the
+    equilibrated matrix, so they stay out of the factor: a column of
+    rounding noise (a diagonal ~1e-27 against ~1e6, from weights that are
+    zero in exact arithmetic) would otherwise be scaled to unit size and,
+    correlated at O(1) with the valid columns, take information from them.
+    Where such a column is exactly zero the factor is unchanged bit for bit
+    (the JAX version factors it in; ROADMAP C, known differences)."""
     diag = torch.diagonal(G, dim1=-2, dim2=-1)
+    valid = diag > 1e-12 * torch.amax(diag, dim=-1, keepdim=True)
     d = torch.sqrt(torch.clamp(diag, min=1e-30))
-    Si = G / (d[..., :, None] * d[..., None, :])
     eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+    both = valid[..., :, None] & valid[..., None, :]
+    Si = torch.where(both, G / (d[..., :, None] * d[..., None, :]), eye)
     L, _ = torch.linalg.cholesky_ex(Si + jitter * eye)
     L = torch.where(torch.isnan(L), eye.expand_as(L), L)
-    valid = diag > 1e-12 * torch.amax(diag, dim=-1, keepdim=True)
     return d[..., :, None] * L, valid

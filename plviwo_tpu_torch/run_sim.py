@@ -12,6 +12,7 @@ images-in path (`feed_image`).
 Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --wheel --gps --out traj.txt
     python -m plviwo_tpu_torch.run_sim --stereo --dynamic --intr-order 3
+    python -m plviwo_tpu_torch.run_sim --lines --wheel [--plc]
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --gps
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --dynamic --clone-freq 10
 
@@ -29,7 +30,7 @@ import time
 
 # JAX driver options not ported yet -> the ROADMAP queue that owns them
 _NOT_PORTED = {
-    "plc": "A9b (point-line-coupled rows)", "auto_init": "A9c (auto-initialization)",
+    "auto_init": "A9c (auto-initialization)",
     "imu_res": "A9c (CPI interpolated poses)", "tags": "A9d (ArUco tags)",
     "host_tracker": "A9d (host trackers)", "viz_dir": "A10 (utils/viz)",
     "record": "A10 (utils/recorder)",
@@ -54,8 +55,9 @@ def _parser():
                     help="stereo: shared-id left/right observations (with --images: a right "
                          "image per frame, L->R association)")
     ap.add_argument("--wheel", action="store_true", help="wheel-odometry fusion (VIWO)")
-    ap.add_argument("--lines", action="store_true",
-                    help="line-feature fusion (PL; with --images only)")
+    ap.add_argument("--lines", action="store_true", help="line-feature fusion (PL)")
+    ap.add_argument("--plc", action="store_true",
+                    help="with --lines: point-line-coupled rows (per-track path only)")
     ap.add_argument("--gps", action="store_true",
                     help="GNSS fusion: host-side 4-DoF delayed init, then per-fix rows")
     ap.add_argument("--dynamic", action="store_true",
@@ -78,7 +80,7 @@ def _parser():
     ap.add_argument("--sequential-update", action="store_true",
                     help="per-sensor sequential EKF updates instead of one joint update a frame")
     ap.add_argument("--out", type=str, default=None, help="TUM trajectory output path")
-    for flag in ("tags", "host_tracker", "auto_init", "imu_res", "plc"):
+    for flag in ("tags", "host_tracker", "auto_init", "imu_res"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
     for flag in ("viz_dir", "record"):
@@ -94,8 +96,9 @@ def _refusals(args):
         what += [f"--{f.replace('_', '-')} with --images: the images-in path does not read it "
                  "(ROADMAP A9a ported it for the per-track path: run without --images)"
                  for f in sorted(_TRACKS_ONLY) if getattr(args, f) not in (False, None)]
-    elif args.lines:
-        what.append("--lines without --images (per-track lines): ROADMAP A9b")
+        if args.plc:
+            what.append("--plc with --images: the attached point ids come from the host "
+                        "trackers (ROADMAP A9d)")
     return what
 
 
@@ -141,6 +144,7 @@ def main(argv=None):
         opts.cam.use_lines = True
         opts.cam.max_lines = 20
         opts.cam.sigma_pix_line = 2.0
+        opts.cam.use_plc = args.plc
     if args.gps:
         opts.gps.enabled = True
         opts.gps.noise = cfg.sigma_gps
@@ -196,13 +200,12 @@ def main(argv=None):
         cams = [(float(t), sim.render_frame(t, with_lines=args.lines))
                 + ((sim.render_frame(t, with_lines=args.lines, cam=1),) if args.stereo else ())
                 for t in sim.cam_times()]
-    elif args.stereo:
-        cam_kind = "stereo"
-        cams = [(float(t),) + sim.cam_frame(t, cam=0) + sim.cam_frame(t, cam=1)
-                for t in sim.cam_times()]
     else:
-        cam_kind = "camera"
-        cams = [(float(t),) + sim.cam_frame(t) for t in sim.cam_times()]
+        cam_kind = "stereo" if args.stereo else "camera"
+        cams = [(float(t),) + sim.cam_frame(t, cam=0)
+                + (sim.cam_frame(t, cam=1) if args.stereo else ())
+                + (sim.line_frame(t) if args.lines else ())
+                for t in sim.cam_times()]
     streams = [("gps", [(float(t), sim.gps_sample(t)) for t in sim.gps_times()]
                 if args.gps else []),
                ("wheel", [(float(t),) + sim.wheel_sample(t) for t in sim.wheel_times()]

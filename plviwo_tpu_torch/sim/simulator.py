@@ -9,8 +9,9 @@ It gives the chip smoke real frames, IMU and wheel data on a machine
 without JAX.
 
 Ported: `gt_pose`, `gt_kin`, `imu_stream`, `cam_times`, `cam_frame` (the
-simulator's data association, both stereo cameras), `render_frame` (with
-`line_frame` and `_draw_line`, both cameras), `wheel_times`, `wheel_sample`,
+simulator's data association, both stereo cameras), `line_frame` (the
+lines' association) and `line_dir_class`, `render_frame` (with
+`_draw_line`, both cameras), `wheel_times`, `wheel_sample`,
 `gps_times` and `gps_sample`.  Not ported: fiducial tags (`n_tags > 0` is
 refused).
 
@@ -113,6 +114,10 @@ class Simulator:
         lengths = self.rng.uniform(2.0, 8.0, size=(c.n_lines, 1))
         self.line_p1 = starts
         self.line_p2 = starts + dirs * lengths
+        # each line's world axis as the vanishing-point classes number them
+        # (1 x, 2 y, 3 z)
+        self.line_dir_class = np.concatenate(
+            [np.full(n_v, 3), np.full(n_x, 1), np.full(c.n_lines - n_v - n_x, 2)])
         self.ground_z = float(self.landmarks[:, 2].min() - 2.0)
 
         # bias random walks sampled on the IMU grid

@@ -18,6 +18,48 @@ from ..ops import lie
 from ..ops.linalg import chi2_quadform, eigvals_sym3x3, solve3x3
 
 
+# landmark error-state representations (reference: LandmarkRepresentation and
+# CamHelper.cpp:21-56, GLOBAL_3D / GLOBAL_FULL_INVERSE_DEPTH)
+REP_GLOBAL_3D = 0
+REP_GLOBAL_INVERSE_DEPTH = 1
+REP_CODES = {"GLOBAL_3D": REP_GLOBAL_3D, "GLOBAL_FULL_INVERSE_DEPTH": REP_GLOBAL_INVERSE_DEPTH}
+
+
+def _nonzero(x):
+    return torch.where(torch.abs(x) < 1e-12, 1e-12, x)
+
+
+def rep_to_xyz(rep_p, rep: int):
+    """Representation vector (...,3) -> global xyz; inverse depth
+    (a, b, rho) -> (a/rho, b/rho, 1/rho)."""
+    if rep == REP_GLOBAL_3D:
+        return rep_p
+    rho = rep_p[..., 2:3]
+    return torch.cat([rep_p[..., 0:2], torch.ones_like(rho)], -1) / _nonzero(rho)
+
+
+def xyz_to_rep(p, rep: int):
+    """Global xyz (...,3) -> the representation vector (rep_to_xyz's inverse)."""
+    if rep == REP_GLOBAL_3D:
+        return p
+    z = _nonzero(p[..., 2:3])
+    return torch.cat([p[..., 0:2] / z, torch.ones_like(z) / z], -1)
+
+
+def rep_jacobian(rep_p, rep: int):
+    """d(xyz)/d(rep) (...,3,3) at the representation value (the chain the
+    reference inserts at CamHelper.cpp:21-56)."""
+    if rep == REP_GLOBAL_3D:
+        return torch.eye(3, dtype=rep_p.dtype, device=rep_p.device).expand(rep_p.shape + (3,))
+    a, b = rep_p[..., 0], rep_p[..., 1]
+    inv = 1.0 / _nonzero(rep_p[..., 2])
+    inv2 = inv * inv
+    z = torch.zeros_like(a)
+    return torch.stack([torch.stack([inv, z, -a * inv2], -1),
+                        torch.stack([z, inv, -b * inv2], -1),
+                        torch.stack([z, z, -inv2], -1)], -2)
+
+
 def _mv(A, x):
     """Batched matrix-vector product with broadcasting: (...,n,m) (...,m)."""
     return (A @ x[..., None])[..., 0]
@@ -256,6 +298,31 @@ def point_systems_interp_batch(p_f, obs_uv, obs_slot0, obs_slot1, obs_lam, obs_v
     Hf = dpix @ R_GtoC_f
     rowmask = repeat_each(obs_valid, 2)
     return (Hx.reshape(B, F, 2 * O, D), Hf.reshape(B, F, 2 * O, 3), r, rowmask)
+
+
+def slam_systems_batch(slam_xyz, slam_slot, obs_uv, obs_slot, obs_valid,
+                       clone_q, clone_p, clone_q_fej, clone_p_fej, cam_q, cam_p, cam_k,
+                       model: int, n_clones: int, clone_off: int, slam_off: int, D: int,
+                       rep_jac=None):
+    """Linear systems of in-state SLAM landmarks (reference: slam_update,
+    UpdaterCamera.cpp:296-338): `point_systems_interp_batch` at each
+    landmark's global xyz with every observation at a clone (s0 = s1,
+    lam = 0, as the JAX driver calls it), the landmark's Jacobian chained
+    through rep_jac (B,S,3,3) = d(xyz)/d(rep) (identity when None) and placed
+    in the columns of its slot; no nullspace projection.
+
+    slam_xyz (B,S,3), slam_slot (B,S) long, obs_uv (B,S,O,2), obs_slot and
+    obs_valid (B,S,O), the rest as `point_systems_interp_batch`.  Returns
+    Hx (B,S,2O,D), r (B,S,2O), rowmask (B,S,2O)."""
+    Hx, Hf, r, rowmask = point_systems_interp_batch(
+        slam_xyz, obs_uv, obs_slot, obs_slot, torch.zeros_like(obs_uv[..., 0]), obs_valid,
+        clone_q, clone_p, clone_q_fej, clone_p_fej, cam_q, cam_p, cam_k, model, n_clones,
+        clone_off, D)
+    Hl = Hf if rep_jac is None else Hf @ rep_jac
+    n_slam = (D - slam_off) // 3
+    band = one_hot(slam_slot, n_slam, Hl.dtype)[:, :, None, :, None] * Hl[..., None, :]
+    Hx[..., slam_off:] += band.flatten(-2)  # (B,S,2O,3 n_slam)
+    return Hx, r, rowmask
 
 
 def point_systems_table_batch(p_f, obs_uv, obs_tidx, obs_valid, obs_cam0,

@@ -13,9 +13,9 @@ the stacked delayed-initialization system over all covered fixes
 (`ekf.delayed_init`) -> rotation of the whole state into ENU with the
 transform's columns as common-mode terms -> marginalization of the
 transform.  The filter math runs in float64 torch on the state's device at
-B = 1 (one vehicle).  Landmark representations other than xyz would need
-the SLAM landmarks marginalized first (`ekf.marginalize_slam_slot`, not
-ported: ROADMAP A9); the updater refuses them.
+B = 1 (one vehicle).  SLAM landmarks in a representation other than xyz
+do not rotate linearly, so they are marginalized before the rotation
+(`ekf.marginalize_slam_slot`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -434,12 +434,11 @@ class GpsUpdater:
 
         # --- whole-state rotation into ENU + transform marginalization
         # (reference: transform_state_to_ENU, UpdaterGPS.cpp:457-516).
-        # Non-xyz landmark representations do not rotate linearly: the JAX
-        # package marginalizes the landmarks first, which is not ported.
-        if getattr(system, "feat_rep", 0) != 0:
-            raise NotImplementedError(
-                "GPS init with a non-xyz landmark representation (feat_rep) needs "
-                "ekf.marginalize_slam_slot, which is not ported yet (ROADMAP A9)")
+        # Non-xyz landmark representations do not rotate linearly: drop the
+        # landmarks first (the reference marginalizes SLAM here regardless).
+        if getattr(system, "feat_rep", 0) != 0 and st.layout.max_slam > 0:
+            for slot in np.nonzero(_host(st.slam_valid))[0]:
+                st = ekf.marginalize_slam_slot(st, int(slot))
         system.state = transform_state_to_enu_marg_trans(st)
         # rotate the recorded trajectory too (it is now in ENU)
         q_rot = lie.rot_2_quat(torch.as_tensor(R_f.T))

@@ -369,15 +369,6 @@ def test_gps_updater_matches_jax(request, jax_linalg, tol):
     _close(tu.init_trans_cov, ju.init_trans_cov, tol)
 
 
-def test_gps_init_refuses_non_xyz_landmarks():
-    lo, st, traj, fixes = _gps_case()
-    u = _updater(True, lo)
-    for f in fixes:
-        u.feed_enu(*f)
-    with pytest.raises(NotImplementedError, match="A9"):
-        u.try_process(_System(FilterState.from_numpy(st, lo, "cpu"), traj, feat_rep=1))
-
-
 # --- the live driver -------------------------------------------------------
 
 LIVE_T0, LIVE_FRAMES = 1.0, 6
@@ -453,7 +444,7 @@ def test_run_sim_cli(capsys):
     (["--images", "--dynamic", "--intr-order", "3"], "A9a"),
     (["--images", "--auto-init"], "A9c"), (["--images", "--tags"], "A9d"),
     (["--images", "--host-tracker"], "A9d"), (["--images", "--imu-res"], "A9c"),
-    (["--images", "--calib"], "A9a"), (["--lines", "--wheel"], "A9b"),
+    (["--images", "--calib"], "A9a"), (["--images", "--lines", "--plc"], "A9d"),
     (["--images", "--record", "out"], "A10"), (["--auto-init"], "A9c"),
     (["--wheel", "--imu-res"], "A9c"), (["--images", "--sequential-update"], "A9a")])
 def test_run_sim_refuses_unported_modes(capsys, argv, queue):
@@ -470,21 +461,15 @@ def _refusal(case):
         opts.cam.fused_lk_conv = False
     if case in ("zupt", "gather_lk"):
         return lambda: VioSystem(opts, device="cpu")
-    if case == "max_slam":
-        opts.cam.max_slam = 4
-    elif case == "imu_res":
+    if case == "imu_res":
         opts.use_imu_res = True
     s = VioSystem(opts, device="cpu")
-    return {"line_ids": lambda: s.feed_camera(0.1, [1], [[1.0, 2.0]], line_ids=[3],
-                                              line_segs=[[1.0, 2.0, 30.0, 40.0]]),
-            "max_slam": lambda: s.feed_camera(0.1, [1], [[1.0, 2.0]]),
-            "imu_res": lambda: s.feed_stereo(0.1, [], [], [], []),
+    return {"imu_res": lambda: s.feed_stereo(0.1, [], [], [], []),
             "auto_init": lambda: s.feed_imu(0.0, np.zeros(3), np.array([0, 0, 9.81]))}[case]
 
 
 @pytest.mark.parametrize("case,queue", [
-    ("zupt", "A9c"), ("gather_lk", "Not ported"), ("line_ids", "A9b"), ("max_slam", "A9b"),
-    ("imu_res", "A9c"), ("auto_init", "A9c")])
+    ("zupt", "A9c"), ("gather_lk", "Not ported"), ("imu_res", "A9c"), ("auto_init", "A9c")])
 def test_system_refuses_unported_modes(case, queue):
     with pytest.raises(NotImplementedError, match=queue):
         _refusal(case)()
