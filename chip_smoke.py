@@ -91,8 +91,33 @@ Phases (any failure raises, so the exit code is non-zero):
      then tests/test_joint_update.py's live replay with 6 slots and GPS,
      joint (inverse depth: the GPS init marginalizes the landmarks) and
      sequential, held to that test's parity gate; readings as phase 16.
-Phases 16-22 launch no kernel (asserted): no TPU kernel lies on JAX's
-per-track path.  Synthetic gate/Gram checks also run at the stereo shapes.
+  23. CPI-interpolated poses (use_imu_res): run_sim --imu-res --duration 8
+     --seed 3's scenario: ATE < 0.2 m, cam_accept_rate > 0.5 and within 1.5x
+     of JAX's driver on the CPU; then with dynamic cloning under a 4 Hz cap
+     (most measurements between clones): RMSE < 1.0 m and within 1.5x of
+     JAX's; the widest `build_cpi_table` call against the same call on the
+     CPU within 1e-9, its host operators and time; readings as phase 16;
+  24. the IMU+wheel auto-initialization: run_sim --wheel --auto-init
+     --duration 8 --seed 3's scenario with no ground-truth seed: the init
+     time equal to JAX's driver's, ATE (position and yaw aligned) < 0.1 m
+     and within 1.5x of JAX's, no device read and no synchronizing call on
+     an IMU sample before the initialization;
+  25. ZUPT: tests/test_zupt.py's two streams (stationary from a wrong start
+     velocity: applied > 0, |v| < 0.05 m/s; moving: applied == 0), syncs
+     per IMU sample and those outside a ZUPT update;
+  26. the host KLT trackers (`update/tracker.py`) on rendered frames into
+     the per-track path: tests/test_tracker.py::test_image_driven_vio_e2e's
+     scenario (updates > 30, RMSE < 0.6 m and within 1.5x of JAX's tracker
+     as it ships), run_sim --images --host-tracker --stereo's (within 1.5x
+     of JAX's; the right observations kept), and phase 17's KAIST width fed
+     by a 150-point tracker (ATE < 1.0 m and within 1.5x of JAX's driver
+     with JAX's tracker): exactly one LK launch a mono frame and two a
+     stereo frame after the first, and LK against its plain version on the
+     trackers' last-frame arguments (B = 1, N = 80 and 150), with times and
+     bounds; readings as phase 16 plus the tracker's ms a frame.
+Phases 16-25 launch no kernel (asserted): no TPU kernel lies on JAX's
+per-track path, CPI, ZUPT or the initializers.  Synthetic gate/Gram checks
+also run at the stereo shapes.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
 JAX.
@@ -133,6 +158,16 @@ KAIST_JAX_ATE, KAIST_JAX_LOST = 0.028162140214340308, 4
 # (tests/test_torch_per_track_lines.py::test_chip_smoke_jax_constants recomputes these)
 LINES_JAX_RMSE = 0.10217998200056672
 KAIST_LINES_JAX_ATE, KAIST_LINES_JAX_LOST = 0.031129871097390037, 3
+# JAX's drivers on the CPU at phases 23-26's settings (tests/test_torch_host_tracker.py::
+# test_chip_smoke_jax_constants recomputes these): phase 23's ATE (m), without and with
+# dynamic cloning at 4 Hz; phase 24's ATE after position-and-yaw alignment (m) and init time
+# (s); phase 26's RMSE with JAX's tracker as it ships (m), run_sim --images --host-tracker
+# --stereo's ATE (m, its summary's 4 digits) and the right observations its tracker keeps,
+# and the KAIST width's ATE with JAX's tracker (m)
+CPI_JAX_ATE, CPI_DYN_JAX_ATE = 0.15762159651808336, 0.07863738852446397
+AUTO_INIT_JAX_ATE, AUTO_INIT_JAX_T = 0.03385969507346896, 0.02
+TRACKER_JAX_RMSE, STEREO_TRACKER_JAX_ATE, STEREO_JAX_RIGHT = 0.4643161454991923, 0.1918, 5733
+KAIST_TRACKER_JAX_ATE = 0.11601727665645131
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -1184,12 +1219,14 @@ def kaist_options(o, lines=False):
     return o
 
 
-def drive_track(system, events, per_frame=None):
+def drive_track(system, events, per_frame=None, feed=None):
     """Feed a per-track event stream (`examples.track_events`) to a
     VioSystem on the card with both kernels' launch counts set to 0, the
     frame timings kept and every synchronizing CUDA call counted (sync debug
     mode); per_frame(system) runs after each processed frame (host reads
-    only).  Returns readings: launches, frames, frames/s, latency p50/p90
+    only); feed(system, kind, args) hands on each event (`examples.feed`,
+    or a host tracker's `examples.feed_tracked`).  Returns readings:
+    launches, frames, frames/s, latency p50/p90
     of the frame (`frame_timing["frame"]`: one `_process_pending` frame, its
     last device read included), median stage ms and the line stage's mean,
     syncs and the driver's own device reads per frame, and the most reads
@@ -1202,6 +1239,7 @@ def drive_track(system, events, per_frame=None):
     from plviwo_tpu_torch.ops import lk_kernel
     from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
 
+    feed = feed or examples.feed
     timing, reads = [], []
     torch.cuda.synchronize()
     lk_kernel.lk_pyramid.launches = 0
@@ -1214,7 +1252,7 @@ def drive_track(system, events, per_frame=None):
             t0 = time.perf_counter()
             for kind, args in events:
                 n = len(system.traj)
-                examples.feed(system, kind, args)
+                feed(system, kind, args)
                 if len(system.traj) > n:
                     timing.append(system.frame_timing)
                     reads.append(system.host_reads)
@@ -1237,15 +1275,16 @@ def drive_track(system, events, per_frame=None):
                 reads_max=int(np.max(np.diff([reads0] + reads))), D=system.layout.dim)
 
 
-def track_report(tag, system, r, extra=""):
+def track_report(tag, system, r, extra="", launches=None):
     st = ", ".join(f"{k} {v:.3f}" for k, v in r["stages"].items())
     print(f"{tag} (B=1, D={r['D']}): stats {system.stats}{extra}; launches {r['launches']}; "
           f"{r['frames']} frames, {r['fps']:.2f} frames/s; frame latency p50 {r['p50_ms']:.3f} ms, "
           f"p90 {r['p90_ms']:.3f} ms; median stage ms: {st}; line stage mean "
           f"{r['line_mean_ms']:.3f} ms; syncs per frame {r['syncs_per_frame']:.2f} (the driver's "
           f"device reads {r['reads_per_frame']:.2f}, at most {r['reads_max']} in one frame)")
-    if r["launches"] != {"lk_pyramid": 0, "msckf_gram_gate": 0}:
-        raise AssertionError(f"{tag}: the per-track path launched a kernel: {r['launches']}")
+    want = launches or {"lk_pyramid": 0, "msckf_gram_gate": 0}
+    if r["launches"] != want:
+        raise AssertionError(f"{tag}: launches {r['launches']}, want {want}")
 
 
 def track_rmse(sim, system):
@@ -1503,6 +1542,326 @@ def phase_track_slam(dev):
     return out
 
 
+def count_ops(fn):
+    """(fn's result, the host operators it dispatched): a torch dispatch-mode
+    count of every ATen operator the call runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def run_sim_options(o, wheel=False, imu_res=False):
+    """run_sim's per-track settings without images (30 MSCKF features,
+    sigma_pix 0.5, chi2 x 5, tracks of >= 4; with the wheel W3D_ANG at
+    0.05 / 0.05 / 0.02 and chi2 x 10), with use_imu_res.  Works on the
+    port's options and the JAX package's.  Returns o."""
+    o.use_imu_res = imu_res
+    o.cam.max_msckf, o.cam.sigma_pix, o.cam.min_track_length, o.cam.chi2_mult = 30, 0.5, 4, 5.0
+    if wheel:
+        w = o.wheel
+        w.enabled, w.type, w.chi2_mult = True, "Wheel3DAng", 10.0
+        w.noise_w, w.noise_v, w.noise_p = 0.05, 0.05, 0.02
+    return o
+
+
+def auto_init_run(system, sim, feed):
+    """run_sim --wheel --auto-init's stream through a VioSystem (the port's
+    or JAX's): the camera and wheel calibration installed, no seed, the
+    per-track events of `examples.track_events(wheel=True)` handed to
+    feed(kind, args).  Returns (ATE after position-and-yaw alignment, the
+    init time)."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.eval.metrics import ate
+
+    c = sim.cfg
+    system.set_calibration(np.asarray(c.intrinsics), np.asarray(c.cam_ext_q),
+                           np.asarray(c.cam_ext_p))
+    system.set_wheel_calibration(np.asarray(c.wheel_ext_q), np.asarray(c.wheel_ext_p),
+                                 [c.wheel_rl, c.wheel_rr, c.wheel_base])
+    for kind, args in examples.track_events(sim, wheel=True):
+        feed(kind, args)
+    t = np.array([t for t, _, _ in system.traj])
+    kins = [sim.gt_kin(x) for x in t]
+    res = ate(t, np.array([p for _, _, p in system.traj]), np.array([q for _, q, _ in system.traj]),
+              t, np.array([k["p_IinG"] for k in kins]), np.array([sim.gt_pose(x)[0] for x in t]),
+              method="posyaw")
+    return res["pos"]["rmse"], system.startup_time
+
+
+def phase_cpi(dev):
+    """Phase 23, CPI-interpolated poses: run_sim --imu-res --duration 8
+    --seed 3's scenario through `VioSystem.feed_camera` with use_imu_res on
+    the card: ATE < 0.2 m, cam_accept_rate > 0.5, within 1.5x of JAX's
+    driver on the CPU (CPI_JAX_ATE).  There a clone lands on every frame,
+    so every measurement time is a clone's and each CPI window is one
+    sample; the same scenario with dynamic cloning under a 4 Hz cap puts
+    most measurements between clones: RMSE < 1.0 m and within 1.5x of JAX's
+    (CPI_DYN_JAX_ATE).  No kernel launch.  The widest `build_cpi_table` call
+    of the second run (the most IMU steps) against the same call on the CPU
+    within 1e-9, its host operators (a dispatch-mode count) and time.
+    Returns the first run's readings with the second's and the table's."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core import system as system_mod
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    build, calls = system_mod.build_cpi_table, []
+
+    def recording_build(*args, **kw):  # keeps the widest table (most IMU steps) of the run
+        if not calls or args[6].shape[-1] >= calls[0][0][6].shape[-1]:
+            calls[:] = [(args, kw)]
+        return build(*args, **kw)
+
+    out = {}
+    for dynamic in (False, True):
+        sim = Simulator(SimConfig(duration=8.0, seed=3, sigma_pix=0.5, n_pts=45))
+        o = run_sim_options(EstimatorOptions(), imu_res=True)
+        if dynamic:
+            o.dynamic_cloning, o.clone_freq = True, 4
+        system = VioSystem(o, device=dev)
+        examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+        calls.clear()
+        system_mod.build_cpi_table = recording_build
+        try:
+            r = drive_track(system, examples.track_events(sim))
+        finally:
+            system_mod.build_cpi_table = build
+        rmse, _ = track_rmse(sim, system)
+        st = system.stats
+        acc = st["cam_accept"] / max(st["cam_accept"] + st["cam_reject"], 1)
+        jax = CPI_DYN_JAX_ATE if dynamic else CPI_JAX_ATE
+        tag = "per-track CPI poses (use_imu_res" + (", dynamic cloning at 4 Hz)" if dynamic
+                                                    else ")")
+        track_report(tag, system, r, f"; ATE {rmse:.4f} m ({rmse / jax:.3f}x JAX's driver on "
+                     f"the CPU), cam_accept_rate {acc:.3f}; widest table N = "
+                     f"{calls[0][0][6].shape[-1]}")
+        out[dynamic] = dict(r, rmse=rmse, acc=acc)
+    # the widest table against the same call on the CPU, and its host operators
+    args, kw = calls[0]
+    got = build(*args, **kw)
+    cpu = build(*(a.cpu() if torch.is_tensor(a) else a for a in args), **kw)
+    err = max(float((g.cpu() - c).abs().max()) for g, c in zip(got, cpu))
+    n_ops = count_ops(lambda: build(*args, **kw))[1]
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: build(*args, **kw), n_iter=10)
+    T, N = args[6].shape[1:]
+    print(f"build_cpi_table (T={T}, N={N}): {n_ops} host operators, {ms:.3f} ms a call, card "
+          f"vs CPU max |d| {err:.3e}")
+    a, b = out[False], out[True]
+    if not (a["rmse"] < 0.2 and a["acc"] > 0.5 and a["rmse"] < 1.5 * CPI_JAX_ATE
+            and b["rmse"] < 1.0 and b["rmse"] < 1.5 * CPI_DYN_JAX_ATE and err < 1e-9):
+        raise AssertionError("per-track CPI poses: missed tests/test_poly_interp_e2e.py::"
+                             "test_cpi_interpolation_e2e's gates (ATE < 0.2 m, accept > 0.5), "
+                             "1.5x JAX's, or the table's 1e-9 against the CPU")
+    return dict(a, dynamic=b, table_ops=n_ops, table_ms=ms, table_err=err, table_TN=(T, N))
+
+
+def phase_auto_init(dev):
+    """Phase 24, the IMU+wheel auto-initialization: run_sim --wheel
+    --auto-init --duration 8 --seed 3's scenario on the card, no ground-truth
+    seed; the init time equal to JAX's driver's (AUTO_INIT_JAX_T), ATE
+    (position and yaw aligned) < 0.1 m and within 1.5x of JAX's
+    (AUTO_INIT_JAX_ATE), and no device read and no synchronizing call on an
+    IMU sample before the initialization."""
+    import warnings
+
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=8.0, seed=3, sigma_pix=0.5, n_pts=45))
+    system = VioSystem(run_sim_options(EstimatorOptions(), wheel=True), device=dev)
+    pre = {"samples": 0, "syncs": 0, "reads": 0}
+
+    def feed(kind, args):
+        if system.initialized:
+            return examples.feed(system, kind, args)
+        reads = system.host_reads
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                examples.feed(system, kind, args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if kind == "imu" and not system.initialized:
+            pre["samples"] += 1
+            pre["syncs"] += sum(1 for w in caught if "synchroniz" in str(w.message))
+            pre["reads"] += system.host_reads - reads
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ate_m, t_init = auto_init_run(system, sim, feed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"per-track IMU+wheel auto-init (B=1, D={system.layout.dim}): init at {t_init} s (JAX "
+          f"{AUTO_INIT_JAX_T} s) after {pre['samples']} IMU samples with {pre['reads']} device "
+          f"reads and {pre['syncs']} synchronizing calls; stats {system.stats}; ATE (posyaw) "
+          f"{ate_m:.4f} m ({ate_m / AUTO_INIT_JAX_ATE:.3f}x JAX's driver on the CPU); "
+          f"{len(system.traj)} frames in {wall:.2f} s")
+    if not (t_init == AUTO_INIT_JAX_T and ate_m < 0.1 and ate_m < 1.5 * AUTO_INIT_JAX_ATE
+            and pre["reads"] == 0 and pre["syncs"] == 0):
+        raise AssertionError("per-track auto-init: the init time differs from JAX's, or ATE not "
+                             f"< 0.1 m and within 1.5x of JAX's {AUTO_INIT_JAX_ATE} m, or a "
+                             "device read before the initialization")
+    return dict(ate=ate_m, t_init=t_init, pre=pre)
+
+
+def phase_zupt(dev):
+    """Phase 25, zero-velocity updates: tests/test_zupt.py's two streams
+    through the port on the card: stationary from a wrong start velocity,
+    applied > 0 and |v| < 0.05 m/s; turning and accelerating, applied == 0.
+    Syncs per IMU sample, the target 0 outside a ZUPT update."""
+    import warnings
+
+    import torch
+
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+
+    out = {}
+    for moving in (False, True):
+        o = EstimatorOptions()
+        o.zupt.enabled = True
+        if not moving:
+            o.imu.init_cov_vel = 0.3
+        system = VioSystem(o, device=dev)
+        system.initialize_from(0.0, [0, 0, 0, 1.0], np.zeros(3),
+                               np.zeros(3) if moving else [0.2, 0.0, 0.0], np.zeros(3),
+                               np.zeros(3))
+        rng = np.random.default_rng(0)
+        n, syncs, outside, tries = 0, 0, 0, 0
+        for i in range(1, 150) if moving else range(200):
+            if moving:
+                w, a = np.array([0.0, 0.0, 0.5]), np.array([0.5, 0, 9.81])
+            else:
+                w = rng.normal(0, 1e-4, 3)
+                a = np.array([0, 0, 9.81]) + rng.normal(0, 5e-3, 3)
+            attempts = sum(system.zupt.stats.values())
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    system.feed_imu(i / 200.0, w, a)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            k = sum(1 for x in caught if "synchroniz" in str(x.message))
+            tried = sum(system.zupt.stats.values()) > attempts
+            n, syncs, tries = n + 1, syncs + k, tries + tried
+            outside += 0 if tried else k
+        v = float(np.linalg.norm(system.state.v[0].cpu().numpy()))
+        tag = "moving" if moving else "stationary"
+        print(f"ZUPT, {tag} stream: {system.zupt.stats}, |v| {v:.4f} m/s; {syncs / n:.3f} syncs "
+              f"per IMU sample over {n} ({tries} ZUPT attempts, {outside} syncs outside them)")
+        ok = (system.zupt.stats["applied"] == 0 if moving
+              else system.zupt.stats["applied"] > 0 and v < 0.05)
+        if not ok:
+            raise AssertionError(f"ZUPT ({tag}): missed tests/test_zupt.py's gates")
+        out[tag] = dict(stats=dict(system.zupt.stats), v=v, syncs_per_sample=syncs / n,
+                        syncs_outside=outside)
+    return out
+
+
+def phase_host_tracker(dev):
+    """Phase 26, the host KLT trackers into the per-track path: (a)
+    tests/test_tracker.py::test_image_driven_vio_e2e's scenario (8 s, seed
+    2, 350 landmarks, 80 slots) through `KltTracker` and `feed_camera` on
+    the card: updates > 30, RMSE < 0.6 m and within 1.5x of JAX's tracker as
+    it ships on the CPU (TRACKER_JAX_RMSE); (b) run_sim --images
+    --host-tracker --stereo --duration 8 --seed 2's scenario through
+    `StereoKltTracker` and `feed_stereo`: within 1.5x of JAX's
+    (STEREO_TRACKER_JAX_ATE), the right observations kept; (c) the KAIST
+    width: phase 17's configuration (D = 172) fed by a `KltTracker` at
+    config_camera.yaml's 150 points (a 15 x 10 grid: one cell per slot, as
+    the images-in driver sizes it) on rendered frames: ATE < 1.0 m and
+    within 1.5x of JAX's driver with JAX's tracker on the CPU
+    (KAIST_TRACKER_JAX_ATE).  LK launches exactly once a mono frame and
+    twice a stereo frame after the first (temporal, L->R; the first frame
+    only detects); no gate/Gram launch.  Readings as phase 16, plus the
+    tracker's own ms a frame.  Returns readings with the last LK call's
+    arguments of each run."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+    from plviwo_tpu_torch.update.tracker import KltTracker
+
+    def run(tag, sim, system, tracker, stereo=False, wheel=False):
+        trk_ms, right, ops = [], [], []
+
+        def feed(s, kind, args):
+            if kind != "frame":
+                return examples.feed(s, kind, args)
+            track = tracker.feed_stereo if stereo else tracker.feed
+            if len(trk_ms) == 10:  # one frame's host operators
+                out, n_ops = count_ops(lambda: track(*args[1:]))
+                ops.append(n_ops)
+            else:
+                out = track(*args[1:])
+            trk_ms.append(tracker.last_ms)
+            if stereo:
+                right.append(len(out[2]))
+                s.feed_stereo(args[0], *out)
+            else:
+                s.feed_camera(args[0], *out)
+
+        capture = {}
+        events = examples.track_events(sim, stereo=stereo, wheel=wheel, images=True)
+        with recording(capture, n_gram=1):
+            r = drive_track(system, events, feed=feed)
+        rmse, _ = track_rmse(sim, system)
+        n = len(trk_ms)
+        want = {"lk_pyramid": (2 if stereo else 1) * n - 1, "msckf_gram_gate": 0}
+        p50, p90 = float(np.percentile(trk_ms, 50)), float(np.percentile(trk_ms, 90))
+        kept = (f"; right observations kept {sum(right)} ({sum(right) / n:.2f} a frame)"
+                if stereo else "")
+        track_report(tag, system, r, f"; RMSE {rmse:.4f} m; {n} frames tracked, tracker "
+                     f"{p50:.3f} / {p90:.3f} ms a frame (p50 / p90; the 11th frame's ms is "
+                     f"that of a count of its {ops[0]} host operators){kept}", launches=want)
+        return dict(r, rmse=rmse, tracked=n, tracker_p50_ms=p50, tracker_p90_ms=p90,
+                    tracker_ops=ops[0], right=sum(right), stats=dict(system.stats),
+                    lk=capture["lk"])
+
+    out = {}
+    sim = Simulator(SimConfig(duration=8.0, seed=2, n_landmarks=350))
+    out["mono"] = run("host tracker, mono (N=80)", sim, *examples.host_tracker_system(sim, dev))
+    sim = Simulator(SimConfig(duration=8.0, seed=2, sigma_pix=0.5, n_pts=45))
+    out["stereo"] = run("host tracker, stereo (N=80)", sim,
+                        *examples.host_tracker_system(sim, dev, stereo=True), stereo=True)
+    sim = Simulator(SimConfig(duration=15.0, seed=1, n_pts=150))
+    system = VioSystem(kaist_options(EstimatorOptions()), device=dev)
+    examples.live_calibrate(system, sim, float(sim.imu_t[0]))
+    tracker = KltTracker(n_pts=150, cam_k=np.asarray(sim.cfg.intrinsics), grid_x=15, grid_y=10,
+                         device=dev)
+    out["kaist"] = run("host tracker, KAIST width (N=150)", sim, system, tracker, wheel=True)
+    m, st, k = out["mono"], out["stereo"], out["kaist"]
+    print(f"host trackers: mono RMSE {m['rmse']:.4f} m ({m['rmse'] / TRACKER_JAX_RMSE:.3f}x "
+          f"JAX's), stereo {st['rmse']:.4f} m ({st['rmse'] / STEREO_TRACKER_JAX_ATE:.3f}x), KAIST "
+          f"width {k['rmse']:.4f} m ({k['rmse'] / KAIST_TRACKER_JAX_ATE:.3f}x); right observations "
+          f"kept {st['right']} (JAX's gather tracker on the same frames: {STEREO_JAX_RIGHT})")
+    if not (m["stats"]["updates"] > 30 and m["rmse"] < 0.6 and m["rmse"] < 1.5 * TRACKER_JAX_RMSE
+            and st["rmse"] < 1.5 * STEREO_TRACKER_JAX_ATE
+            and k["rmse"] < 1.0 and k["rmse"] < 1.5 * KAIST_TRACKER_JAX_ATE):
+        raise AssertionError("host trackers: missed tests/test_tracker.py's gates (updates > "
+                             "30, RMSE < 0.6 m), 1.5x JAX's, or the KAIST width's ATE < 1.0 m")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1586,13 +1945,26 @@ def main() -> int:
     slam = phase_track_slam(dev)
     track["slam_3d"], track["slam_inverse_depth"] = slam["GLOBAL_3D"], slam[
         "GLOBAL_FULL_INVERSE_DEPTH"]
+    track["cpi"] = phase_cpi(dev)
+    auto_init = phase_auto_init(dev)
+    zupt = phase_zupt(dev)
+    trackers = phase_host_tracker(dev)
+    lk_trackers = {name: phase_lk(f"host tracker {name} last frame", trackers[name]["lk"])
+                   for name in ("mono", "kaist")}
     track_launches = {k: sum(r["launches"][k] for r in track.values())
                       for k in ("lk_pyramid", "msckf_gram_gate")}
+    tracker_launches = sum(r["launches"]["lk_pyramid"] for r in trackers.values())
     print("per-track path at B=1 on " + card + ": " + "; ".join(
         f"{name} p50 {r['p50_ms']:.3f} ms / p90 {r['p90_ms']:.3f} ms, {r['fps']:.2f} frames/s, "
         f"line stage median {r['stages']['line']:.3f} / mean {r['line_mean_ms']:.3f} ms, "
         f"{r['syncs_per_frame']:.2f} syncs a frame (at most {r['reads_max']} reads)"
-        for name, r in track.items()))
+        for name, r in list(track.items()) + list(trackers.items())))
+    print(f"CPI table (T, N = {track['cpi']['table_TN']}) on {card}: "
+          f"{track['cpi']['table_ops']} host operators, {track['cpi']['table_ms']:.3f} ms; CPI "
+          f"with dynamic cloning p50 {track['cpi']['dynamic']['p50_ms']:.3f} ms; auto-init at "
+          f"{auto_init['t_init']} s, ATE {auto_init['ate']:.4f} m; ZUPT syncs per IMU sample "
+          + ", ".join(f"{k} {v['syncs_per_sample']:.3f} ({v['syncs_outside']} outside updates)"
+                      for k, v in zupt.items()))
 
     # one frame's two calls (points k = 3, lines k = 4): times summed, the
     # bound of their bytes and operations together
@@ -1642,7 +2014,8 @@ def main() -> int:
          "replaces": "plviwo_tpu/ops/lk_kernel.py:141",
          "launches": img_launches["lk_pyramid"],
          "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"], lk_live["max_abs_err"],
-                            new_paths["stereo_frame_lk_lr"]["max_abs_err"]),
+                            new_paths["stereo_frame_lk_lr"]["max_abs_err"],
+                            *(g["max_abs_err"] for g in lk_trackers.values())),
          "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": None,
          "launches_by_path": {"images_in": img_launches["lk_pyramid"],
@@ -1652,8 +2025,11 @@ def main() -> int:
                               "images_in_dynamic": dyn_launches["lk_pyramid"],
                               "live_driver_dynamic": ldyn_launches["lk_pyramid"],
                               "live_driver_stereo": lst_launches["lk_pyramid"],
-                              "per_track": track_launches["lk_pyramid"]},
+                              "per_track": track_launches["lk_pyramid"],
+                              "host_tracker": tracker_launches},
          "live_driver_b1": times(lk_live),
+         "host_tracker_b1": {f"n{trackers[name]['lk'][2].shape[1]}": times(g)
+                             for name, g in lk_trackers.items()},
          "stereo_frame_lr": times(new_paths["stereo_frame_lk_lr"]),
          "captured_frame": times(lk_frame)}
     ]}))

@@ -11,7 +11,8 @@ respect to the support clones and to the evaluation time.  The JAX package
 takes those Jacobians by `jax.jacfwd`; here they are written in closed form
 (`interpolate_rotation_jacobian`, `_poly_jacobian`), since a forward-mode
 pass through `log_so3` and `exp_so3` costs hundreds of host operators a
-call.  `build_cpi_table` (the IMU-preintegrated alternative) is ROADMAP A9c;
+call.  `build_cpi_table` is the IMU-preintegrated alternative to the
+polynomial table (`use_imu_res`), with the same row format;
 `bounding_clones` has no caller on a ported path.
 """
 
@@ -176,4 +177,52 @@ def build_interp_table(clone_q, clone_p, clone_q_fej, clone_p_fej, sup_slot, sup
     R_tf, p_tf, J, Jt = _poly_jacobian(at(clone_q_fej), at(clone_p_fej), sup_dt, dt_eval)
     onehot = (sup_slot[..., None] == torch.arange(n_clones, device=sup_slot.device)).to(J.dtype)
     tJ = torch.einsum("btokj,btkc->btocj", J, onehot).reshape(J.shape[:3] + (6 * n_clones,))
+    return lie.rot_2_quat(R_t), p_t, lie.rot_2_quat(R_tf), p_tf, tJ, Jt
+
+
+def build_cpi_table(clone_q, clone_p, clone_q_fej, clone_p_fej, anchor_slot, anchor_v,
+                    imu_t, imu_w, imu_a, bg, ba, gravity, n_clones: int):
+    """The CPI-interpolated pose table, `use_imu_res`'s alternative to
+    `build_interp_table` (reference: State::get_interpolated_pose_imu and the
+    CPI side-band, State.cpp:1138-1155, Propagator.cpp:63-82).
+
+    Each time anchors at the clone at or before it; its pose is the CPI
+    preintegral (`cpi.cpi_v1`, its last entry) from the anchor over that time's IMU window:
+        R_t = R_k2tau R_a,   p_t = p_a + v_a dt - 0.5 g dt^2 + R_a^T alpha.
+    The FEJ Jacobian with respect to the anchor clone is the 6 x 6 block
+    dtheta_t/dtheta_a = R_k2tau, dp_t/dp_a = I, dp_t/dtheta_a =
+    -R_a(fej)^T [alpha]x, placed in the clone band by the anchor's one-hot;
+    the anchor velocity is the recorded propagated estimate, not a state.
+
+    clone_q/p (B,C,4)/(B,C,3) and their FEJ mirrors; anchor_slot (B,T) long,
+    anchor_v (B,T,3); imu_t (B,T,N), imu_w / imu_a (B,T,N,3) the padded
+    windows from the anchor time to each time; bg, ba (B,3); gravity (3,).
+    Returns the row format of `build_interp_table`: tq (B,T,4), tp (B,T,3),
+    tq_f, tp_f, tJ (B,T,6,6C), tJt (B,T,6) (the body rate and velocity at
+    the time)."""
+    from .cpi import cpi_v1_last
+
+    cpi = cpi_v1_last(imu_t, imu_w, imu_a, bg[:, None], ba[:, None])
+    R_rel, alpha, beta, dt, w_tau = (cpi[k] for k in ("R_k2tau", "alpha", "beta", "dt", "w_tau"))
+    bidx = torch.arange(clone_q.shape[0], device=clone_q.device)[:, None]
+    dtc = dt[..., None]
+    fall = 0.5 * gravity * dtc * dtc
+
+    def pose(q_ring, p_ring):
+        R_a = lie.quat_2_rot(q_ring[bidx, anchor_slot])
+        RaT = R_a.transpose(-1, -2)
+        p_t = p_ring[bidx, anchor_slot] + anchor_v * dtc - fall + (RaT @ alpha[..., None])[..., 0]
+        return R_rel @ R_a, p_t, RaT
+
+    R_t, p_t, RaT = pose(clone_q, clone_p)
+    R_tf, p_tf, RafT = pose(clone_q_fej, clone_p_fej)
+    eye = torch.eye(3, dtype=R_rel.dtype, device=R_rel.device).expand(R_rel.shape)
+    zero = torch.zeros_like(R_rel)
+    block = torch.cat([torch.cat([R_rel, zero], -1),
+                       torch.cat([-RafT @ lie.skew(alpha), eye], -1)], -2)  # (B,T,6,6)
+    onehot = (anchor_slot[..., None] == torch.arange(n_clones, device=anchor_slot.device))
+    tJ = (onehot.to(block.dtype)[..., None, :, None] * block[..., :, None, :]).reshape(
+        block.shape[:2] + (6, 6 * n_clones))
+    v_t = anchor_v - gravity * dtc + (RaT @ beta[..., None])[..., 0]
+    Jt = torch.cat([w_tau, v_t], dim=-1)
     return lie.rot_2_quat(R_t), p_t, lie.rot_2_quat(R_tf), p_tf, tJ, Jt

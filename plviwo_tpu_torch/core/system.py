@@ -49,11 +49,20 @@ classified at, the SLAM chi^2 vector and each new landmark's triangulation
 and correction, each wheel pair's chi^2, the recorded pose, the calibration
 estimates when they are estimated online).
 
-Not ported: the CPI-interpolated poses (`use_imu_res`), ZUPT and the
-IMU(+wheel) auto-initialization (ROADMAP A9c), refused with
-NotImplementedError rather than skipped; the native feature store and the
-host trackers (A9d: the Python store is used, and the caller feeds tracks).
-Callers seed the state with `initialize_from`.
+With `opts.use_imu_res` the per-track poses between clones come from
+continuous preintegration of the IMU from the clone at or before each time
+(`core/interp.build_cpi_table`) instead of the polynomial.  With
+`opts.zupt.enabled` a stationary IMU window (tested on the host on every
+sample, against a host mirror of the gyro bias) adds a zero-velocity
+update between frames (`update/zupt.py`).
+
+Until `initialize_from` seeds the state, every IMU sample tries the
+auto-initialization on the host buffers: the IMU+wheel initializer
+(`init/imu_wheel.py`, with the wheel) or the static IMU one
+(`init/static_imu.py`); the camera frames from before its time are dropped.
+The tracked features of `feed_camera` come from the caller: the simulator's
+data association, or the host KLT trackers of `update/tracker.py`.  Not
+ported: the native feature store (ROADMAP A9d: the Python store is used).
 """
 
 from __future__ import annotations
@@ -66,27 +75,32 @@ import numpy as np
 import torch
 
 from ..config.options import EstimatorOptions
+from ..init.imu_wheel import IwInitializer
+from ..init.static_imu import try_static_init
 from ..ops import cam as cam_ops
+from ..ops import lie
 from ..ops.chi2 import _TABLE as CHI2_TABLE
 from ..update import cam_helper
 from ..update import gps as gps_up
 from ..update import lines as line_up
 from ..update import wheel as wheel_up
 from ..update.feature_db import FeatureDatabase, LineDatabase
+from ..update.zupt import ZuptUpdater
 from ..utils.timing import TimeChecker
 from . import dynamic_cloning as dynclone
 from . import ekf, propagator
 from .frame import fused_frame, make_track_state
-from .interp import build_interp_table
+from .interp import build_cpi_table, build_interp_table
 from .layout import StateLayout
 from .state import CUDA, FilterState, checked_device, make_state, newest_clone_slot
 
 F32 = torch.float32
 F64 = torch.float64
 IMU_PAD = 64  # max IMU samples per propagate call
+CPI_PAD = 64  # IMU samples per CPI window (use_imu_res)
 WHEEL_PAD = 32  # wheel samples per frame window (64 clone to clone, dynamic cloning)
 GPS_PAD = 4  # GPS fixes per frame
-# per-frame metrics read back to the host, in this order, then time, q, p
+# per-frame metrics read back to the host, in this order, then time, q, p and bg
 _METRICS = ("accepted", "harvested", "lines_accepted", "line_harvested", "wheel_accepted",
             "gps_accepted")
 
@@ -97,9 +111,6 @@ class VioSystem:
     def __init__(self, opts: EstimatorOptions | None = None, device=CUDA):
         self.opts = opts or EstimatorOptions()
         op = self.opts
-        if op.zupt.enabled:
-            raise NotImplementedError("zero-velocity updates (opts.zupt) are not ported yet "
-                                      "(ROADMAP A9c)")
         if not op.cam.fused_lk_conv:
             raise NotImplementedError("the gather LK (cam.fused_lk_conv=False) is a TPU "
                                       "variant the port does not carry (ROADMAP A, Not ported)")
@@ -113,6 +124,9 @@ class VioSystem:
         )
         self.state: FilterState = make_state(self.layout, device=self.device)
         self._time = -np.inf  # host copy of state.time
+        # host copy of state.bg for the stationarity test; None when an update
+        # since the last read may have moved it
+        self._bg = np.zeros(3)
         self.initialized = False
         self.imu_buf = propagator.ImuBuffer()
         self._pending_images: deque = deque()
@@ -137,6 +151,14 @@ class VioSystem:
         self.gps = (gps_up.GpsUpdater(op.gps, self.layout, CHI2_TABLE)
                     if op.gps.enabled else None)
         self._last_kf_pos = None
+        # zero-velocity updates (the reference's ZuptUpdater is missing from
+        # its snapshot; update/zupt.py builds the intended behavior)
+        z = op.zupt
+        self.zupt = (ZuptUpdater(self.layout, CHI2_TABLE, sigma_v=z.sigma_v, sigma_w=z.sigma_w,
+                                 gyro_thresh=z.gyro_thresh, accel_var_thresh=z.accel_var_thresh,
+                                 window=z.window, chi2_mult=z.chi2_mult, device=self.device)
+                     if z.enabled else None)
+        self._iw_init = None  # the IMU+wheel initializer, made at the first attempt
         self.stats = {"cam_accept": 0, "cam_reject": 0, "clones": 0, "updates": 0,
                       "wheel_accept": 0, "wheel_reject": 0,
                       "line_accept": 0, "line_reject": 0, "lost_marg_obs": 0,
@@ -166,6 +188,8 @@ class VioSystem:
         self._cam_k = np.tile([1.0, 1.0, 0, 0, 0, 0, 0, 0], (self.layout.n_cams, 1))
         self._cam_dt0 = 0.0
         self._wheel_dt = 0.0
+        # the wheel calibration set_wheel_calibration installed (q, p, intrinsics)
+        self._wheel_calib = (np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3), np.ones(3))
         # host mirrors of the SLAM slots' ids and validity, and each slot's
         # count of consecutive failed gates
         S = self.layout.max_slam
@@ -203,6 +227,8 @@ class VioSystem:
             wheel_q=t(wheel_q)[None], wheel_p=t(wheel_p)[None], wheel_k=t(intrinsics)[None],
             wheel_dt=t(dt)[None])
         self._wheel_dt = float(dt)
+        self._wheel_calib = tuple(np.array(x, dtype=np.float64)
+                                  for x in (wheel_q, wheel_p, intrinsics))
 
     def set_gps_calibration(self, ext_p):
         """Install the antenna position in the IMU frame (the JAX driver
@@ -234,6 +260,7 @@ class VioSystem:
         if ow.enabled and ow.do_calib_int:
             priors["wheel_int"] = max(ow.init_cov_in_r, ow.init_cov_in_b)
         st = make_state(self.layout, priors=priors, device=self.device)
+        self._bg = np.array(bg, dtype=np.float64)
         d = self._tensor
         q, p, v, bg, ba = (d(x)[None] for x in (q_GtoI, p, v, bg, ba))
         old = self.state
@@ -243,6 +270,7 @@ class VioSystem:
         self.state = st.replace(time=d(t)[None], q=q, p=p, v=v, bg=bg, ba=ba, q_fej=q, p_fej=p,
                                 v_fej=v, bg_fej=bg, ba_fej=ba, **calib)
         self._time = float(t)
+        self.startup_time = float(t)
         self._clone_t[:] = np.inf
         self._clone_valid[:] = False
         self._clone_kf[:] = False
@@ -257,9 +285,26 @@ class VioSystem:
         self.imu_buf.feed(t, w, a)
         if not self.initialized:
             self._try_init()
+            return
         self._process_pending()
         if self._pending_images:
             self._process_pending_images()
+        b = self.imu_buf
+        if self.zupt is not None and self.zupt.is_stationary(b.t, b.w, b.a, self._bg_host()):
+            # propagate up to the current IMU time, then clamp the velocity
+            try:
+                if b.newest > self._time + 0.05:
+                    self._propagate_to(b.newest)
+                self.zupt.try_update(self, w)
+            except RuntimeError:
+                pass  # IMU coverage gap (e.g. right after init): skip
+
+    def _bg_host(self):
+        """The host mirror of state.bg, read again only after an update that
+        the driver did not read it back from (a GPS update)."""
+        if self._bg is None:
+            self._bg = self._host(self.state.bg[0])
+        return self._bg
 
     def _use_path(self, path: str):
         """Bind the system to one camera path: the per-track path keeps host
@@ -270,10 +315,6 @@ class VioSystem:
         self._path = path
 
     def _per_track_checks(self):
-        op = self.opts
-        if op.use_imu_res:
-            raise NotImplementedError("CPI-interpolated poses (use_imu_res) are not ported yet "
-                                      "(ROADMAP A9c)")
         self._use_path("tracks")
 
     def _undistort(self, uvs, cam: int):
@@ -437,10 +478,10 @@ class VioSystem:
                 do_clone=torch.tensor([do_clone], device=self.device) if use_dyn else None,
                 use_stereo=img_r is not None and self.layout.n_cams >= 2,
                 img_r=None if img_r is None else img_r[None])
-            # ONE host transfer: the frame's metrics, time and pose
+            # ONE host transfer: the frame's metrics, time, pose and bg
             st = self.state
             host = torch.cat([m[k].to(F64) for k in _METRICS]
-                             + [st.time, st.q[0], st.p[0]]).cpu().numpy()
+                             + [st.time, st.q[0], st.p[0], st.bg[0]]).cpu().numpy()
             ms_frame = 1e3 * tc.dong("frame")
             acc, harv, lacc, lharv, wacc, gacc = (int(x) for x in host[:len(_METRICS)])
             self._time = float(host[len(_METRICS)])
@@ -457,13 +498,14 @@ class VioSystem:
                 self._last_clone_t = t
             self.stats["updates"] += 1
             self._last_frame_t = t
-            q, p = host[len(_METRICS) + 1:len(_METRICS) + 5], host[len(_METRICS) + 5:]
+            q, p = host[len(_METRICS) + 1:len(_METRICS) + 5], host[len(_METRICS) + 5:-3]
+            self._bg = host[-3:]
             self._record_pose(self._time, q, p)
             ms_gps = 0.0
             if self.gps is not None:
                 t_gps = time.perf_counter()
                 was_init = self.gps.initialized
-                self.gps.try_process(self)
+                self._gps_process()
                 if self.gps.initialized and not was_init:
                     self.state = self.state.replace(
                         clone_keyframe=torch.zeros_like(self.state.clone_keyframe))
@@ -542,10 +584,49 @@ class VioSystem:
     # ------------------------------------------------------------------
     # initialization and propagation
     # ------------------------------------------------------------------
+    def _gps_process(self):
+        """The GPS updater's keyframe and fix handling after a frame; an
+        update there leaves the host bg mirror stale."""
+        st = self.state
+        self.gps.try_process(self)
+        if self.state is not st:
+            self._bg = None
+
     def _try_init(self):
-        raise NotImplementedError(
-            "auto-initialization (init/static_imu.py, init/imu_wheel.py) is not ported yet "
-            "(ROADMAP A9c): seed the state with initialize_from before feeding the IMU")
+        """Auto-initialization on the host buffers (reference: the
+        Initializer's try_initialize, Initializer.cpp): the IMU+wheel
+        initializer with the wheel (unless init.imu_only_init), else the
+        static IMU one; on success the state is seeded at its time and the
+        camera frames from before it are dropped.  Reads no device state:
+        the wheel calibration is the host copy set_wheel_calibration kept."""
+        op = self.opts
+        b = self.imu_buf
+        if len(b.t) < 20:
+            return
+        if op.wheel.enabled and not op.init.imu_only_init:
+            wq, wp, wk = self._wheel_calib
+            if self._iw_init is None:
+                R_OtoI = lie.quat_2_rot(torch.from_numpy(wq)).numpy().T
+                self._iw_init = IwInitializer(
+                    gravity_mag=op.gravity_mag, threshold=0.5, window_time=op.init.window_time,
+                    R_OtoI=R_OtoI, p_IinO=wp, toff=self._wheel_dt,
+                    gravity_aligned=op.init.imu_gravity_aligned)
+            wb = self.wheel_buf
+            if len(wb.t) < 5:
+                return
+            W, V = wheel_up.wv_stack_np(wb.m1, wb.m2, wk, self.wheel_type)
+            res = self._iw_init.try_init(b.t, b.w, b.a, wb.t, W, V)
+        else:
+            res = try_static_init(b.t, b.w, b.a, op.init.window_time, op.init.imu_thresh,
+                                  op.gravity_mag, require_excitation=False)
+        if res is None:
+            return
+        q = lie.rot_2_quat(torch.from_numpy(np.asarray(res["R_GtoI"], dtype=np.float64)))
+        self.initialize_from(res["t"], q.numpy(), np.zeros(3), res["v"], res["bg"], res["ba"])
+        # drop the camera frames from before the initialization
+        while self.pending_frames and self.pending_frames[0] <= res["t"]:
+            self.pending_frames.popleft()
+        self._db_cleanup(res["t"])
 
     def _propagate_to(self, t_target):
         t0 = self._time
@@ -620,10 +701,10 @@ class VioSystem:
             self._augment_clone()
             self.stats["clones"] += 1
             # (body rate, global velocity) at the clone time for the wheel
-            # dt-calibration column (the reference's CPI side-band w/v,
-            # UpdaterWheel.cpp:400-414; the propagated state at the clone
-            # time is exactly the CPI reconstruction)
-            if op.wheel.enabled and op.wheel.do_calib_dt:
+            # dt-calibration column and the CPI anchors (the reference's CPI
+            # side-band w/v, UpdaterWheel.cpp:400-414; the propagated state
+            # at the clone time is exactly the CPI reconstruction)
+            if (op.wheel.enabled and op.wheel.do_calib_dt) or op.use_imu_res:
                 wa = self.imu_buf.at(t_frame)
                 if wa is not None:
                     bv = self._host(torch.cat([self.state.bg[0], self.state.v[0]]))
@@ -647,11 +728,13 @@ class VioSystem:
             self._apply_joint_rows()
             ms_update = 1e3 * tc.dong("update")
             st = self.state
-            qp = self._host(torch.cat([st.q[0], st.p[0]]))  # waits for the frame's device work
-            self._record_pose(self._time, qp[:4], qp[4:])
+            # waits for the frame's device work; bg refreshes the host mirror
+            qpb = self._host(torch.cat([st.q[0], st.p[0], st.bg[0]]))
+            self._record_pose(self._time, qpb[:4], qpb[4:7])
+            self._bg = qpb[7:]
             if self.gps is not None:
                 was_init = self.gps.initialized
-                self.gps.try_process(self)
+                self._gps_process()
                 if self.gps.initialized and not was_init:
                     # alignment done: release the keyframes
                     # (reference: SystemManager.cpp:164-168)
@@ -844,6 +927,8 @@ class VioSystem:
         lo = self.layout
         if len(vt) < 2 or not obs_valid.any():
             return None
+        if op.use_imu_res:
+            return self._cpi_table(vt, vslots, obs_t, obs_valid)
         order = self._cur_order if op.dynamic_cloning else op.intr_order
         order = max(1, min(order, len(vt) - 1))
         K = order + 1
@@ -880,6 +965,71 @@ class VioSystem:
         is_interp = (~np.isin(obs_t, vt) if abs(dt_shift) < 1e-9
                      else np.ones_like(obs_valid))
         return (obs_tidx,) + table + (is_interp, order)
+
+    def _cpi_table(self, vt, vslots, obs_t, obs_valid):
+        """The CPI-interpolated pose table (use_imu_res, the reference's
+        State::get_interpolated_pose_imu): each unique measurement time
+        anchors at the clone at or before it, with the velocity recorded at
+        that clone, and the device preintegrates the IMU window from the
+        anchor (`build_cpi_table`, windows of up to CPI_PAD samples from
+        `ImuBuffer.select`, cut after the longest window's last sample).
+        Times no window covers are dropped from obs_valid (in place), as are
+        the oldest beyond T = 2C + 8.  The return of `_interp_table` (order
+        1)."""
+        op = self.opts
+        lo = self.layout
+        T = 2 * lo.n_clones + 8
+        tarr = np.unique(obs_t[obs_valid])
+        if len(tarr) > T:
+            tarr = tarr[-T:]
+            obs_valid &= np.isin(obs_t, tarr)
+        dt_shift = (float(self._host(self.state.cam_dt[0, 0])) - self._cam_dt0
+                    if op.cam.do_calib_dt else 0.0)
+        anchor_slot = np.zeros(T, dtype=np.int64)
+        anchor_v = np.zeros((T, 3))
+        wt = np.zeros((T, CPI_PAD))
+        ww = np.zeros((T, CPI_PAD, 3))
+        wa = np.zeros((T, CPI_PAD, 3))
+        drop_times = set()
+        for i, ti in enumerate(tarr):
+            j = int(np.searchsorted(vt, ti + 1e-12, side="right") - 1)
+            if j < 0:
+                drop_times.add(ti)
+                continue
+            anchor_slot[i] = vslots[j]
+            wv = self.clone_wv.get(float(vt[j]))
+            anchor_v[i] = wv[1] if wv is not None else self._host(self.state.v[0])
+            te = ti + dt_shift
+            if te - vt[j] < 1e-9:
+                wt[i] = vt[j]
+            else:
+                sel = self.imu_buf.select(float(vt[j]), float(te), pad_to=CPI_PAD)
+                if sel is None:
+                    drop_times.add(ti)
+                    continue
+                wt[i], ww[i], wa[i] = sel
+        if drop_times:
+            obs_valid &= ~np.isin(obs_t, sorted(drop_times))
+            if not obs_valid.any():
+                return None
+        obs_tidx = np.searchsorted(tarr, obs_t).clip(0, T - 1)
+        obs_tidx[~obs_valid] = 0
+        # the steps past every window's last sample are padding, no-ops bit
+        # for bit: the device integrates the longest window's samples only
+        N = max(2, int(np.max(np.argmax(wt == wt[:, -1:], axis=1))) + 1)
+        wt, ww, wa = wt[:, :N], ww[:, :N], wa[:, :N]
+        st = self.state
+        f = self._tensor(np.concatenate([anchor_v.ravel(), wt.ravel(), ww.ravel(), wa.ravel()]))
+        n3, nt = 3 * T, T * N
+        table = build_cpi_table(
+            st.clone_q, st.clone_p, st.clone_q_fej, st.clone_p_fej,
+            self._tensor(anchor_slot, torch.long)[None], f[:n3].reshape(1, T, 3),
+            f[n3:n3 + nt].reshape(1, T, N), f[n3 + nt:n3 + 4 * nt].reshape(1, T, N, 3),
+            f[n3 + 4 * nt:].reshape(1, T, N, 3), st.bg, st.ba, self.gravity,
+            n_clones=lo.n_clones)
+        is_interp = (~np.isin(obs_t, vt) if abs(dt_shift) < 1e-9
+                     else np.ones_like(obs_valid))
+        return (obs_tidx,) + table + (is_interp, 1)
 
     def _msckf_update(self, t_frame, marg_times):
         """MSCKF update of the tracks that are lost or observe a clone in
@@ -1312,4 +1462,6 @@ class VioSystem:
         }
         if self.gps is not None:
             out["gps"] = dict(self.gps.stats)
+        if self.zupt is not None:
+            out["zupt"] = dict(self.zupt.stats)
         return out

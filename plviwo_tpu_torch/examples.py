@@ -448,7 +448,7 @@ def attached_points(segs, ids, uvs):
 
 
 def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = False,
-                 lines: bool = False, plc: bool = False):
+                 lines: bool = False, plc: bool = False, images: bool = False):
     """The per-track path's sensor stream as run_sim replays it without
     images: the simulator's data association at every camera time (with
     stereo the right camera's after the left's, with lines then the lines'
@@ -457,13 +457,19 @@ def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = Fal
     stream, as the JAX driver draws them; then per IMU sample the fixes,
     wheel samples and frames due by then, then the sample itself.  With plc
     each frame's lines also carry their attached points (`attached_points`).
+    With images each frame is instead the rendered image (and with stereo
+    the right one), without lines, for a host tracker (`feed_tracked`), as
+    run_sim --images --host-tracker draws them.
     Works with the port's simulator and the JAX package's.  Returns
-    [(kind, args)] with kind in "gps", "wheel", "camera", "stereo", "imu":
-    the arguments of VioSystem.feed_gps_enu, feed_wheel, feed_camera,
-    feed_stereo and feed_imu."""
+    [(kind, args)] with kind in "gps", "wheel", "camera", "stereo", "imu"
+    (the arguments of VioSystem.feed_gps_enu, feed_wheel, feed_camera,
+    feed_stereo and feed_imu) and "frame" ((t, img) or (t, img, img_r))."""
     imu_t, imu_w, imu_a = sim.imu_stream()
 
     def frame(t):
+        if images:
+            return ("frame", (float(t), sim.render_frame(t, with_lines=False))
+                    + ((sim.render_frame(t, with_lines=False, cam=1),) if stereo else ()))
         out = sim.cam_frame(t, cam=0) + (sim.cam_frame(t, cam=1) if stereo else ())
         if lines:
             lids, segs = sim.line_frame(t)
@@ -534,3 +540,56 @@ def feed(system, kind: str, args):
     {"gps": system.feed_gps_enu, "wheel": system.feed_wheel, "image": system.feed_image,
      "camera": system.feed_camera, "stereo": system.feed_stereo,
      "imu": system.feed_imu}[kind](*args)
+
+
+def feed_tracked(system, tracker, kind: str, args):
+    """`feed`, with a "frame" event's images run through a host KLT tracker
+    (`update/tracker.py`) into feed_camera (feed_stereo with a right
+    image)."""
+    if kind != "frame":
+        return feed(system, kind, args)
+    t, *imgs = args
+    if len(imgs) == 2:
+        system.feed_stereo(t, *tracker.feed_stereo(*imgs))
+    else:
+        system.feed_camera(t, *tracker.feed(imgs[0]))
+
+
+def host_tracker_system(sim, device=CUDA, stereo: bool = False, n_pts: int = 80,
+                        grid=(12, 10)):
+    """tests/test_tracker.py::test_image_driven_vio_e2e's filter and tracker
+    (80 slots on a 12 x 10 grid, 30 MSCKF features, sigma_pix 1.5, chi2 x 8,
+    tracks of >= 4; with stereo run_sim --stereo's two cameras and tracks of
+    >= 6), seeded from the ground truth at the first IMU sample.  Returns
+    (VioSystem, KltTracker or StereoKltTracker)."""
+    from .config.options import EstimatorOptions
+    from .core.system import VioSystem
+    from .update.tracker import KltTracker, StereoKltTracker
+
+    o = EstimatorOptions()
+    o.cam.n_pts, o.cam.max_msckf, o.cam.sigma_pix = n_pts, 30, 1.5
+    o.cam.min_track_length, o.cam.chi2_mult = 4, 8.0
+    if stereo:
+        o.cam.max_n, o.cam.min_track_length = 2, 6
+    s = VioSystem(o, device=device)
+    c = sim.cfg
+    live_calibrate(s, sim, float(sim.imu_t[0]))
+    tracker = (StereoKltTracker if stereo else KltTracker)(
+        n_pts=n_pts, cam_k=np.asarray(c.intrinsics), grid_x=grid[0], grid_y=grid[1],
+        device=device)
+    return s, tracker
+
+
+def host_tracker_vio(device=CUDA, stereo: bool = False):
+    """tests/test_tracker.py::test_image_driven_vio_e2e through the port:
+    8 s, seed 2, 350 landmarks, rendered frames -> the host KLT tracker ->
+    the per-track filter (`host_tracker_system`).  Returns (RMSE of the
+    positions against the truth, stats, the VioSystem)."""
+    from .sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=8.0, seed=2, n_landmarks=350))
+    s, tracker = host_tracker_system(sim, device, stereo)
+    for kind, args in track_events(sim, stereo=stereo, images=True):
+        feed_tracked(s, tracker, kind, args)
+    errs = [np.linalg.norm(p - sim.gt_kin(t)["p_IinG"]) for t, _, p in s.traj]
+    return float(np.sqrt(np.mean(np.square(errs)))), s.stats, s

@@ -4,9 +4,10 @@ plviwo_tpu/ops/image.py), batch-first.
 Images are (B, H, W) float32.  Filters are separable, written as shifted
 slices of a zero-padded image as the JAX package writes them (no
 convolution call: cuDNN would run a float32 convolution in TF32), so both
-packages take the same multiply-adds in the same order.  `hist_equalize`
-(the LUT variant) and `bilinear_sample` are off the frame's path and not
-ported.
+packages take the same multiply-adds in the same order.  The frame
+equalizes with `hist_equalize_quantile`; the host trackers with the LUT
+variant `hist_equalize`.  `bilinear_sample` is off every ported path and
+not ported.
 """
 
 from __future__ import annotations
@@ -74,6 +75,30 @@ def build_pyramid(img, levels: int):
 def gradients(img):
     """(gx, gy) Scharr-style gradients."""
     return _sep_conv(img, SCHARR_D, SCHARR_S), _sep_conv(img, SCHARR_S, SCHARR_D)
+
+
+def hist_equalize(img, bins: int = 256):
+    """Global histogram equalization through a LUT (the reference uses
+    cv::equalizeHist; a global equalize normalizes contrast for tracking).
+
+    Pixels clipped to [0, 1] are binned as `jnp.histogram(range=(0, 1),
+    bins=bins)` bins them: against the float32 edges k / bins, each pixel in
+    the bin of the last edge at or below it (`searchsorted` on the right),
+    the last edge inclusive.  The counts are exact integers, so the
+    float32 CDF equals JAX's; the LUT index is floor(x (bins - 1)) in
+    float32.  img (B,H,W) f32 -> (B,H,W) f32."""
+    B = img.shape[0]
+    flat = torch.clamp(img.reshape(B, -1), 0.0, 1.0)
+    edges = torch.linspace(0.0, 1.0, bins + 1, dtype=torch.float64,
+                           device=img.device).to(img.dtype)
+    idx = torch.searchsorted(edges, flat, right=True)
+    idx = torch.where(flat == edges[-1], bins, idx)  # the last edge is inclusive
+    hist = torch.zeros((B, bins + 1), dtype=torch.int64, device=img.device)
+    hist = hist.scatter_add_(1, idx, torch.ones_like(idx))[:, 1:]
+    cdf = torch.cumsum(hist, dim=-1).to(img.dtype)
+    cdf = cdf / cdf[:, -1:]
+    lut = torch.clamp((flat * (bins - 1)).to(torch.int32), 0, bins - 1).long()
+    return torch.gather(cdf, 1, lut).reshape(img.shape)
 
 
 def hist_equalize_quantile(img, knots: int = 17):

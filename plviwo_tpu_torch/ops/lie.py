@@ -160,6 +160,23 @@ def jr_so3(w):
     return jl_so3(-w)
 
 
+def gamma2_so3(w):
+    """Second-order SO(3) integral Gamma2(u) = int_0^1 int_0^s exp(u^ t) dt ds
+    = 1/2 I + ((th - sin th)/th^3) u^ + ((th^2/2 + cos th - 1)/th^4) u^^2,
+    with the Taylor branch of `jl_so3` below the cancellation cutoff.  With
+    u = omega dt, dt^2 Gamma2(u) is the double integral of exp(omega^ tau)
+    that CPI V2's closed-form position increment needs."""
+    th2, th = _theta2_safe(w)
+    sk = skew(w)
+    small = th2 < _cancel_cut(w.dtype)
+    a = torch.where(small, 1.0 / 6.0 - th2 / 120.0 + th2 * th2 / 5040.0,
+                    (th - torch.sin(th)) / (th * th * th))
+    s2 = torch.sin(th / 2.0)
+    b = torch.where(small, 1.0 / 24.0 - th2 / 720.0 + th2 * th2 / 40320.0,
+                    (th * th / 2.0 - 2.0 * s2 * s2) / (th2 * th2))
+    return 0.5 * _eye3(w) + a[..., None, None] * sk + b[..., None, None] * (sk @ sk)
+
+
 def unskew(m):
     """Inverse of skew: (...,3,3) -> (...,3)."""
     return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)

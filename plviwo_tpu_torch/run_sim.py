@@ -7,7 +7,12 @@ ATE is finite and under 5 m.
 Without --images the camera stream is the simulator's data association
 (tracked ids and pixels, `Simulator.cam_frame`) into the per-track path
 (`feed_camera` / `feed_stereo`); with --images, rendered frames into the
-images-in path (`feed_image`).
+images-in path (`feed_image`), or with --images --host-tracker into the
+host KLT trackers (`update/tracker.py`, LK on the card's kernel) and from
+them into the per-track path.  --auto-init starts the filter from the
+IMU(+wheel) initializer instead of the ground truth (the ATE then aligns
+position and yaw); --imu-res interpolates the per-track poses by
+continuous preintegration.
 
 Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --wheel --gps --out traj.txt
@@ -15,6 +20,8 @@ Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --lines --wheel [--plc]
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --gps
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --dynamic --clone-freq 10
+    python -m plviwo_tpu_torch.run_sim --images --host-tracker --stereo --wheel --gps
+    python -m plviwo_tpu_torch.run_sim --wheel --auto-init --imu-res
 
 Options of the JAX driver that the port does not run yet exit non-zero
 naming their ROADMAP queue.
@@ -30,13 +37,12 @@ import time
 
 # JAX driver options not ported yet -> the ROADMAP queue that owns them
 _NOT_PORTED = {
-    "auto_init": "A9c (auto-initialization)",
-    "imu_res": "A9c (CPI interpolated poses)", "tags": "A9d (ArUco tags)",
-    "host_tracker": "A9d (host trackers)", "viz_dir": "A10 (utils/viz)",
-    "record": "A10 (utils/recorder)",
+    "tags": "A9d (ArUco tags)", "viz_dir": "A10 (utils/viz)", "record": "A10 (utils/recorder)",
 }
 # options only the per-track path reads (JAX's feed_image path ignores them)
-_TRACKS_ONLY = {"intr_order", "calib", "sequential_update", "max_msckf"}
+# -> the ROADMAP queue that ported them there
+_TRACKS_ONLY = {"intr_order": "A9a", "calib": "A9a", "sequential_update": "A9a",
+                "max_msckf": "A9a", "imu_res": "A9c"}
 
 
 def _parser():
@@ -69,6 +75,14 @@ def _parser():
     ap.add_argument("--images", action="store_true",
                     help="render frames and run the images-in frame instead of the "
                          "simulator's data association")
+    ap.add_argument("--host-tracker", action="store_true",
+                    help="with --images: the host KLT trackers feed the per-track path "
+                         "instead of the images-in frame")
+    ap.add_argument("--auto-init", action="store_true",
+                    help="the IMU(+wheel) initializer instead of the ground-truth seed")
+    ap.add_argument("--imu-res", action="store_true",
+                    help="CPI-interpolated poses (use_imu_res) instead of the polynomial table "
+                         "(per-track path)")
     ap.add_argument("--fused-f64", action="store_true",
                     help="with --images: the frame's camera tensors in f64 instead of f32")
     ap.add_argument("--max-obs", type=int, default=None,
@@ -80,9 +94,8 @@ def _parser():
     ap.add_argument("--sequential-update", action="store_true",
                     help="per-sensor sequential EKF updates instead of one joint update a frame")
     ap.add_argument("--out", type=str, default=None, help="TUM trajectory output path")
-    for flag in ("tags", "host_tracker", "auto_init", "imu_res"):
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
+    ap.add_argument("--tags", action="store_true",
+                    help=f"not ported yet (ROADMAP {_NOT_PORTED['tags']})")
     for flag in ("viz_dir", "record"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
@@ -92,10 +105,15 @@ def _parser():
 def _refusals(args):
     what = [f"--{f.replace('_', '-')}: ROADMAP {q}" for f, q in _NOT_PORTED.items()
             if getattr(args, f) not in (False, None)]
-    if args.images:
+    if args.images and args.host_tracker and args.lines:
+        what.append("--lines with --host-tracker: the host line tracker runs the anchor-walk "
+                    "detector (ROADMAP A9d)")
+    if args.images and not args.host_tracker:
         what += [f"--{f.replace('_', '-')} with --images: the images-in path does not read it "
-                 "(ROADMAP A9a ported it for the per-track path: run without --images)"
-                 for f in sorted(_TRACKS_ONLY) if getattr(args, f) not in (False, None)]
+                 f"(ROADMAP {q} ported it for the per-track path: run without --images or with "
+                 "--host-tracker)"
+                 for f, q in sorted(_TRACKS_ONLY.items()) if getattr(args, f) not in (False, None)]
+    if args.images:
         if args.plc:
             what.append("--plc with --images: the attached point ids come from the host "
                         "trackers (ROADMAP A9d)")
@@ -125,6 +143,7 @@ def main(argv=None):
     opts = EstimatorOptions()
     opts.joint_update = not args.sequential_update
     opts.dynamic_cloning = args.dynamic
+    opts.use_imu_res = args.imu_res
     if args.clone_freq is not None:
         opts.clone_freq = args.clone_freq
     if args.intr_order is not None:
@@ -158,7 +177,12 @@ def main(argv=None):
         opts.wheel.noise_p = 0.02
         opts.wheel.intrinsics = [cfg.wheel_rl, cfg.wheel_rr, cfg.wheel_base]
         opts.wheel.chi2_mult = 10.0
-    if args.images:
+    tracked = args.images and args.host_tracker
+    if tracked:
+        # the host trackers' settings
+        opts.cam.sigma_pix = max(opts.cam.sigma_pix, 1.5)
+        opts.cam.chi2_mult = 8.0
+    elif args.images:
         # the images-in frame's settings
         if args.fused_f64:
             opts.cam.fused_dtype = "f64"
@@ -189,14 +213,15 @@ def main(argv=None):
         return lie.rot_2_quat(torch.as_tensor(np.asarray(R))).numpy()
 
     imu_t, imu_w, imu_a = sim.imu_stream()
-    kin0 = sim.gt_kin(imu_t[0])
-    sys_.initialize_from(float(imu_t[0]), quat(kin0["R_GtoI"]), kin0["p_IinG"],
-                         kin0["v_IinG"], sim.bg_true[0], sim.ba_true[0])
+    if not args.auto_init:
+        kin0 = sim.gt_kin(imu_t[0])
+        sys_.initialize_from(float(imu_t[0]), quat(kin0["R_GtoI"]), kin0["p_IinG"],
+                             kin0["v_IinG"], sim.bg_true[0], sim.ba_true[0])
 
     # the generator's draws in the JAX driver's order: every frame, then
     # the wheel samples, then the GPS fixes (identity world->ENU)
     if args.images:
-        cam_kind = "image"
+        cam_kind = "tracked" if tracked else "image"
         cams = [(float(t), sim.render_frame(t, with_lines=args.lines))
                 + ((sim.render_frame(t, with_lines=args.lines, cam=1),) if args.stereo else ())
                 for t in sim.cam_times()]
@@ -213,6 +238,18 @@ def main(argv=None):
                (cam_kind, cams)]
     feeds = {"gps": sys_.feed_gps_enu, "wheel": sys_.feed_wheel, "image": sys_.feed_image,
              "camera": sys_.feed_camera, "stereo": sys_.feed_stereo}
+    if tracked:
+        from .update.tracker import KltTracker, StereoKltTracker
+
+        tracker = (StereoKltTracker if args.stereo else KltTracker)(
+            n_pts=80, cam_k=np.asarray(cfg.intrinsics), grid_x=12, grid_y=10, device=args.device)
+
+        def feed_tracked(t, img, img_r=None):
+            if img_r is None:
+                sys_.feed_camera(t, *tracker.feed(img))
+            else:
+                sys_.feed_stereo(t, *tracker.feed_stereo(img, img_r))
+        feeds["tracked"] = feed_tracked
     nxt = [0] * len(streams)
 
     t_wall = time.time()
@@ -233,7 +270,7 @@ def main(argv=None):
         kins = [sim.gt_kin(t) for t in t_e]
         p_g = np.asarray([k["p_IinG"] for k in kins])
         q_g = np.asarray([quat(k["R_GtoI"]) for k in kins])
-        res = ate(t_e, p_e, q_e, t_e, p_g, q_g, method="none")
+        res = ate(t_e, p_e, q_e, t_e, p_g, q_g, method="posyaw" if args.auto_init else "none")
         rmse = res["pos"]["rmse"]
         final_err = res["pos"]["max"]
 

@@ -7,8 +7,9 @@ log-depth prefix scans and the 6x6 (Phi, Q) chain the JAX tree fold, as in
 the JAX version; the 2D models (`preintegrate_2d`, `linear_system_2d`) and
 the time-offset calibration column serve the per-track driver.
 `WheelBuffer` is the host-side sample buffer the live
-driver (`core/system.py`) selects padded windows from, in numpy, a copy of
-the JAX package's.
+driver (`core/system.py`) selects padded windows from, and `wv_stack_np`
+the IMU+wheel initializer's sample conversion, both in numpy, copies of the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -38,6 +39,28 @@ def _wv_from_meas(m1, m2, intr, type_code: int):
     if type_code in (W2D_LIN, W3D_LIN):
         return (m2 - m1) / b, (m2 + m1) / 2.0
     return m1, m2
+
+
+def wv_stack_np(m1, m2, intr, type_code: int):
+    """Host numpy: raw samples (M,) to odometry-frame rates and velocities
+    (W (M,3), V (M,3)) for the IMU+wheel initializer (only w_z and v_x are
+    observed)."""
+    rl, rr, b = intr
+    m1 = np.asarray(m1)
+    m2 = np.asarray(m2)
+    if type_code in (W2D_ANG, W3D_ANG):
+        w = (m2 * rr - m1 * rl) / b
+        v = (m2 * rr + m1 * rl) / 2.0
+    elif type_code in (W2D_LIN, W3D_LIN):
+        w = (m2 - m1) / b
+        v = (m2 + m1) / 2.0
+    else:
+        w, v = m1, m2
+    W = np.zeros((len(m1), 3))
+    V = np.zeros((len(m1), 3))
+    W[:, 2] = w
+    V[:, 0] = v
+    return W, V
 
 
 def _rk4_local(wh1, vh1, wh2, vh2, dt, dt_safe):

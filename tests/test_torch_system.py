@@ -442,11 +442,10 @@ def test_run_sim_cli(capsys):
 
 @pytest.mark.parametrize("argv,queue", [
     (["--images", "--dynamic", "--intr-order", "3"], "A9a"),
-    (["--images", "--auto-init"], "A9c"), (["--images", "--tags"], "A9d"),
-    (["--images", "--host-tracker"], "A9d"), (["--images", "--imu-res"], "A9c"),
+    (["--images", "--tags"], "A9d"), (["--images", "--imu-res"], "A9c"),
     (["--images", "--calib"], "A9a"), (["--images", "--lines", "--plc"], "A9d"),
-    (["--images", "--record", "out"], "A10"), (["--auto-init"], "A9c"),
-    (["--wheel", "--imu-res"], "A9c"), (["--images", "--sequential-update"], "A9a")])
+    (["--images", "--record", "out"], "A10"), (["--images", "--sequential-update"], "A9a"),
+    (["--images", "--host-tracker", "--lines"], "A9d")])
 def test_run_sim_refuses_unported_modes(capsys, argv, queue):
     assert run_sim.main(["--device", "cpu"] + argv) != 0
     err = capsys.readouterr()
@@ -455,21 +454,12 @@ def test_run_sim_refuses_unported_modes(capsys, argv, queue):
 
 def _refusal(case):
     opts = t_options.EstimatorOptions()
-    if case == "zupt":
-        opts.zupt.enabled = True
-    elif case == "gather_lk":
+    if case == "gather_lk":
         opts.cam.fused_lk_conv = False
-    if case in ("zupt", "gather_lk"):
-        return lambda: VioSystem(opts, device="cpu")
-    if case == "imu_res":
-        opts.use_imu_res = True
-    s = VioSystem(opts, device="cpu")
-    return {"imu_res": lambda: s.feed_stereo(0.1, [], [], [], []),
-            "auto_init": lambda: s.feed_imu(0.0, np.zeros(3), np.array([0, 0, 9.81]))}[case]
+    return lambda: VioSystem(opts, device="cpu")
 
 
-@pytest.mark.parametrize("case,queue", [
-    ("zupt", "A9c"), ("gather_lk", "Not ported"), ("imu_res", "A9c"), ("auto_init", "A9c")])
+@pytest.mark.parametrize("case,queue", [("gather_lk", "Not ported")])
 def test_system_refuses_unported_modes(case, queue):
     with pytest.raises(NotImplementedError, match=queue):
         _refusal(case)()
