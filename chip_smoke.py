@@ -115,6 +115,23 @@ Phases (any failure raises, so the exit code is non-zero):
      stereo frame after the first, and LK against its plain version on the
      trackers' last-frame arguments (B = 1, N = 80 and 150), with times and
      bounds; readings as phase 16 plus the tracker's ms a frame.
+  27. the host line tracker (`update/line_tracker.py`, the anchor walk) on
+     rendered frames with lines: phase 26's mono scenario with the lines and
+     the wheel (run_sim --images --host-tracker --lines --wheel's
+     settings), then with the point-line-coupled rows: RMSE within 1.5x of
+     JAX's driver with JAX's trackers as they ship, line_accept > 0, one LK
+     launch a frame after the first; the line tracker on the card against
+     its CPU run on the same frames and point tracks (line ids and attached
+     ids equal, segments within 1e-3 px); readings as phase 16 plus the
+     trackers' ms a frame and the line tracker's host operators a frame;
+  28. `run_kaist` over a KAIST-layout fixture written here by the port's
+     `generate_kaist_fixture` at tests/test_kaist_e2e.py::test_run_kaist_e2e's
+     settings (640 x 480, 8 Hz, 12 s) with that test's layered config and
+     --wheel --lines: that test's gates (frames >= 90, clones > 50, updates
+     > 30, ATE < 1.0 m) and ATE within 1.5x of JAX's run_kaist; LK launches
+     equal frames - 1; the native feature store taken; p50 / p90 a frame of
+     the point tracker, the line tracker and the filter, syncs a frame, and
+     whether PyYAML and Pillow are installed (the port reads neither).
 Phases 16-25 launch no kernel (asserted): no TPU kernel lies on JAX's
 per-track path, CPI, ZUPT or the initializers.  Synthetic gate/Gram checks
 also run at the stereo shapes.
@@ -168,6 +185,11 @@ CPI_JAX_ATE, CPI_DYN_JAX_ATE = 0.15762159651808336, 0.07863738852446397
 AUTO_INIT_JAX_ATE, AUTO_INIT_JAX_T = 0.03385969507346896, 0.02
 TRACKER_JAX_RMSE, STEREO_TRACKER_JAX_ATE, STEREO_JAX_RIGHT = 0.4643161454991923, 0.1918, 5733
 KAIST_TRACKER_JAX_ATE = 0.11601727665645131
+# phase 27's RMSE with JAX's trackers as they ship (m), without and with the
+# point-line-coupled rows, and phase 28's ATE from JAX's run_kaist (m), recomputed by
+# the same test
+LINE_TRACKER_JAX_RMSE, LINE_TRACKER_PLC_JAX_RMSE = 0.07870616962629386, 0.07929164920492474
+KAIST_REPLAY_JAX_ATE = 0.10269945706667286
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -405,7 +427,8 @@ def phase_lk(tag, args):
           f"{int(out[1].sum())}, plain {int(ref[1].sum())}, agree {agree:.5f}; median |duv| "
           f"{med:.3e} px, max {mx:.3e} px; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bms:.4f} ms ({by})")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                n=int(uv.shape[1]))
 
 
 def ptxas_report(log, kernel):
@@ -1862,6 +1885,217 @@ def phase_host_tracker(dev):
     return out
 
 
+def phase_host_line_tracker(dev):
+    """Phase 27, the host line tracker: phase 26's mono scenario (8 s, seed
+    2, 350 landmarks, 80 point slots) rendered with its lines, through
+    `KltTracker` and `LineTracker` (the anchor walk, 20 lines of >= 30 px)
+    into `feed_camera` with the wheel, then again with the point-line-coupled
+    rows: RMSE within 1.5x of JAX's driver with JAX's trackers as they ship
+    on the CPU, line_accept > 0, exactly one LK launch a frame after the
+    first and no gate/Gram launch; the first run's line tracker held to a
+    CPU line tracker fed the same frames and point tracks.  Readings as
+    phase 16, plus the trackers' ms a frame and the line tracker's host
+    operators a frame."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+    from plviwo_tpu_torch.update.line_tracker import LineTracker
+
+    out = {}
+    for plc, jax_rmse in ((False, LINE_TRACKER_JAX_RMSE), (True, LINE_TRACKER_PLC_JAX_RMSE)):
+        tag = "host line tracker" + (" with PLC rows" if plc else "")
+        sim = Simulator(SimConfig(duration=8.0, seed=2, n_landmarks=350))
+        system, tracker = examples.host_tracker_system(sim, dev, lines=True, wheel=True, plc=plc)
+        lines = LineTracker(max_lines=system.opts.cam.max_lines, min_length=30.0, device=dev)
+        pt_ms, line_ms, ops, kept = [], [], [], []
+
+        def feed(s, kind, args):
+            if kind != "frame":
+                return examples.feed(s, kind, args)
+            t, img = args
+            ids, uvs = tracker.feed(img)
+            if len(line_ms) == 10:  # one frame's host operators
+                got, n_ops = count_ops(lambda: lines.feed(img, ids, uvs))
+                ops.append(n_ops)
+            else:
+                got = lines.feed(img, ids, uvs)
+            pt_ms.append(tracker.last_ms)
+            line_ms.append(lines.last_ms)
+            if not plc:
+                kept.append((img, ids, uvs, got))
+            s.feed_camera(t, ids, uvs, *got)
+
+        events = examples.track_events(sim, wheel=True, images=True, lines=True)
+        reads0 = lines.host_reads
+        capture = {}
+        with recording(capture, n_gram=1):
+            r = drive_track(system, events, feed=feed)
+        rmse, _ = track_rmse(sim, system)
+        n = len(line_ms)
+        ms = {k: (float(np.percentile(v, 50)), float(np.percentile(v, 90)))
+              for k, v in (("point", pt_ms), ("line", line_ms))}
+        track_report(tag, system, r, f"; RMSE {rmse:.4f} m ({rmse / jax_rmse:.3f}x JAX's "
+                     f"{jax_rmse:.4f}); {n} frames tracked: point tracker {ms['point'][0]:.3f} / "
+                     f"{ms['point'][1]:.3f} ms, line tracker {ms['line'][0]:.3f} / "
+                     f"{ms['line'][1]:.3f} ms a frame (p50 / p90), the line tracker's "
+                     f"{ops[0]} host operators in the 11th frame and "
+                     f"{(lines.host_reads - reads0) / n:.2f} reads a frame",
+                     launches={"lk_pyramid": n - 1, "msckf_gram_gate": 0})
+        if not (system.stats["line_accept"] > 0 and rmse < 1.5 * jax_rmse):
+            raise AssertionError(f"{tag}: line_accept {system.stats['line_accept']} or RMSE "
+                                 f"{rmse:.4f} m not within 1.5x JAX's {jax_rmse:.4f} m")
+        out["plc" if plc else "lines"] = dict(r, rmse=rmse, tracked=n, point_ms=ms["point"],
+                                              line_ms=ms["line"], line_ops=ops[0],
+                                              lk=capture["lk"])
+        if plc:
+            continue
+        # the card's line tracker against the CPU's on the same frames and tracks
+        cpu = LineTracker(max_lines=system.opts.cam.max_lines, min_length=30.0, device="cpu")
+        err, n_lines = 0.0, 0
+        for i, (img, ids, uvs, (lids, segs, pids)) in enumerate(kept):
+            c_lids, c_segs, c_pids = cpu.feed(img, ids, uvs)
+            if not (np.array_equal(lids, c_lids) and len(pids) == len(c_pids)
+                    and all(np.array_equal(a, b) for a, b in zip(pids, c_pids))):
+                raise AssertionError(f"{tag}: frame {i}: the card's line ids or attached ids "
+                                     "differ from the CPU's")
+            if len(lids):
+                err = max(err, float(np.abs(segs - c_segs).max()))
+            n_lines += len(lids)
+        print(f"{tag}: card against the CPU on {len(kept)} frames: {n_lines} lines, ids and "
+              f"attached ids equal, segments within {err:.3g} px")
+        if err > 1e-3:
+            raise AssertionError(f"{tag}: segments {err:.3g} px from the CPU's (limit 1e-3)")
+    return out
+
+
+def write_filtered_png(path, img):
+    """Write an (H, W) uint8 image as an 8-bit grayscale PNG whose row y is
+    filtered with type y % 5 (none, sub, up, average, Paeth), as adaptive
+    encoders mix them: the decoder's general path, which the fixture's
+    filter-0 files never take."""
+    import struct
+    import zlib
+
+    H, W = img.shape
+    x = img.astype(np.int64)
+    a = np.pad(x, ((0, 0), (1, 0)))[:, :-1]  # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]  # up
+    c = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]  # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    ftype = np.arange(H) % 5
+    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])[ftype[:, None],
+                                                                    np.arange(H)[:, None],
+                                                                    np.arange(W)]
+    raw = np.concatenate([ftype[:, None], (x - pred) & 0xFF], 1).astype(np.uint8).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def png_decode_ms(root):
+    """The port's PNG reader on a KAIST-sized frame (1280 x 560 gray) written
+    with all five row filters: the median ms of 5 reads, held equal to the
+    image written."""
+    from plviwo_tpu_torch.data import png
+
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[:560, :1280]
+    img = ((np.sin(x / 7.0) + np.cos(y / 5.0)) * 60 + 128 + rng.normal(0, 8, y.shape)).clip(
+        0, 255).astype(np.uint8)
+    path = Path(root) / "filtered_1280x560.png"
+    write_filtered_png(path, img)
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = png.read_gray(path)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not np.array_equal(got, img):
+            raise AssertionError("PNG decode: the filtered 1280 x 560 frame read back differs")
+    return float(np.median(ms))
+
+
+def phase_kaist_replay(dev):
+    """Phase 28, `run_kaist` on a fixture written here: the port's
+    `generate_kaist_fixture` at tests/test_kaist_e2e.py::test_run_kaist_e2e's
+    settings (SimConfig(duration=16, n_landmarks=350, n_lines=40, 640 x 480,
+    seed=5), t_start 1 s, 12 s at 8 Hz) with that test's layered config
+    (`write_fixture_config`), replayed with --wheel --lines on the card with
+    both launch counts set to 0 and every synchronizing call counted: that
+    test's gates, ATE within 1.5x of JAX's run_kaist on the CPU, LK
+    launches equal frames - 1 and no gate/Gram launch, the native feature
+    store taken.  Returns readings with the last LK call's arguments."""
+    import importlib.util
+    import tempfile
+    import warnings
+
+    import torch
+
+    from plviwo_tpu_torch import run_kaist
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+    from plviwo_tpu_torch.sim.kaist_fixture import generate_kaist_fixture, write_fixture_config
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    have = {name: importlib.util.find_spec(mod) is not None
+            for name, mod in (("PyYAML", "yaml"), ("Pillow", "PIL"))}
+    print("KAIST replay: " + ", ".join(f"{k} {'installed' if v else 'not installed'}"
+                                       for k, v in have.items())
+          + " (the port reads its YAML and PNG files without them)")
+    with tempfile.TemporaryDirectory() as root:
+        sim = Simulator(SimConfig(duration=16.0, n_landmarks=350, n_lines=40, width=640,
+                                  height=480, seed=5))
+        t0 = time.perf_counter()
+        man = generate_kaist_fixture(root, sim, t_start=1.0, duration=12.0, cam_hz=8.0)
+        gen_s = time.perf_counter() - t0
+        master = write_fixture_config(root, sim.cfg)
+        args = run_kaist._parser().parse_args(["--root", root, "--config", master, "--wheel",
+                                               "--lines", "--device", str(dev)])
+        torch.cuda.synchronize()
+        lk_kernel.lk_pyramid.launches = 0
+        gram_gate.launches = 0
+        capture = {}
+        with warnings.catch_warnings(record=True) as caught, recording(capture, n_gram=1):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                summary, system, ms = run_kaist.replay(args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        decode_ms = png_decode_ms(root)
+    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                "msckf_gram_gate": gram_gate.launches}
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    n, ate = summary["frames"], summary.get("ate_rmse_m")
+    split = "; ".join(f"{k} {v['p50']:.3f} / {v['p90']:.3f} ms"
+                      for k, v in summary["frame_ms"].items())
+    print(f"KAIST replay ({man['images']} images written in {gen_s:.1f} s): {summary}; "
+          f"launches {launches}; per frame (p50 / p90): {split}; syncs per frame "
+          f"{syncs / n:.2f}; stats {system.stats}")
+    want = {"lk_pyramid": n - 1, "msckf_gram_gate": 0}
+    if launches != want or summary["feature_store"] != "native":
+        raise AssertionError(f"KAIST replay: launches {launches} (want {want}) or feature "
+                             f"store {summary['feature_store']} (want native)")
+    if not (n >= 90 and summary["clones"] > 50 and summary["updates"] > 30 and ate is not None
+            and np.isfinite(ate) and ate < 1.0 and ate < 1.5 * KAIST_REPLAY_JAX_ATE):
+        raise AssertionError("KAIST replay: missed tests/test_kaist_e2e.py's gates (frames >= "
+                             "90, clones > 50, updates > 30, ATE < 1.0 m) or 1.5x JAX's ATE "
+                             f"{KAIST_REPLAY_JAX_ATE:.4f} m")
+    print(f"KAIST replay: ATE {ate:.4f} m ({ate / KAIST_REPLAY_JAX_ATE:.3f}x JAX's)")
+    print(f"PNG decode: a 1280 x 560 gray frame with all five row filters (real KAIST frames' "
+          f"size and encoding) {decode_ms:.3f} ms a read (median of 5), equal to the image "
+          f"written; the fixture's 640 x 480 filter-0 frames "
+          f"{summary['frame_ms']['decode']['p50']:.3f} ms p50")
+    return dict(summary, launches=launches, syncs_per_frame=syncs / n, lk=capture["lk"],
+                decode_1280x560_ms=decode_ms)
+
+
 def main() -> int:
     import torch
 
@@ -1951,6 +2185,11 @@ def main() -> int:
     trackers = phase_host_tracker(dev)
     lk_trackers = {name: phase_lk(f"host tracker {name} last frame", trackers[name]["lk"])
                    for name in ("mono", "kaist")}
+    line_trackers = phase_host_line_tracker(dev)
+    kaist_replay = phase_kaist_replay(dev)
+    lk_trackers["line_tracker"] = phase_lk("host line tracker last frame",
+                                           line_trackers["lines"]["lk"])
+    lk_trackers["kaist_replay"] = phase_lk("KAIST replay last frame", kaist_replay["lk"])
     track_launches = {k: sum(r["launches"][k] for r in track.values())
                       for k in ("lk_pyramid", "msckf_gram_gate")}
     tracker_launches = sum(r["launches"]["lk_pyramid"] for r in trackers.values())
@@ -1958,7 +2197,8 @@ def main() -> int:
         f"{name} p50 {r['p50_ms']:.3f} ms / p90 {r['p90_ms']:.3f} ms, {r['fps']:.2f} frames/s, "
         f"line stage median {r['stages']['line']:.3f} / mean {r['line_mean_ms']:.3f} ms, "
         f"{r['syncs_per_frame']:.2f} syncs a frame (at most {r['reads_max']} reads)"
-        for name, r in list(track.items()) + list(trackers.items())))
+        for name, r in list(track.items()) + list(trackers.items())
+        + list(line_trackers.items())))
     print(f"CPI table (T, N = {track['cpi']['table_TN']}) on {card}: "
           f"{track['cpi']['table_ops']} host operators, {track['cpi']['table_ms']:.3f} ms; CPI "
           f"with dynamic cloning p50 {track['cpi']['dynamic']['p50_ms']:.3f} ms; auto-init at "
@@ -2026,10 +2266,12 @@ def main() -> int:
                               "live_driver_dynamic": ldyn_launches["lk_pyramid"],
                               "live_driver_stereo": lst_launches["lk_pyramid"],
                               "per_track": track_launches["lk_pyramid"],
-                              "host_tracker": tracker_launches},
+                              "host_tracker": tracker_launches,
+                              "host_line_tracker": sum(r["launches"]["lk_pyramid"]
+                                                       for r in line_trackers.values()),
+                              "kaist_replay": kaist_replay["launches"]["lk_pyramid"]},
          "live_driver_b1": times(lk_live),
-         "host_tracker_b1": {f"n{trackers[name]['lk'][2].shape[1]}": times(g)
-                             for name, g in lk_trackers.items()},
+         "host_tracker_b1": {f"{name}_n{g['n']}": times(g) for name, g in lk_trackers.items()},
          "stereo_frame_lr": times(new_paths["stereo_frame_lk_lr"]),
          "captured_frame": times(lk_frame)}
     ]}))

@@ -4,8 +4,7 @@ The port's own copy of the JAX package's dataclass tree (pure Python; the
 port imports nothing of the JAX package): the same classes, fields and
 defaults, which tests/test_torch_system.py holds equal field by field.
 They mirror the reference's option structs (`PL-VIWO/src/options/*`).
-Loading the tree from layered YAML (`config/yaml_io.py`) is not ported
-yet (ROADMAP A10).
+`config/yaml_io.py` loads the tree from layered YAML.
 """
 
 from __future__ import annotations

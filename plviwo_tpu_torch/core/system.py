@@ -61,8 +61,16 @@ auto-initialization on the host buffers: the IMU+wheel initializer
 (`init/imu_wheel.py`, with the wheel) or the static IMU one
 (`init/static_imu.py`); the camera frames from before its time are dropped.
 The tracked features of `feed_camera` come from the caller: the simulator's
-data association, or the host KLT trackers of `update/tracker.py`.  Not
-ported: the native feature store (ROADMAP A9d: the Python store is used).
+data association, or the host KLT trackers of `update/tracker.py` (with
+lines the host line tracker of `update/line_tracker.py`).
+
+The feature store.  Tracks live in the Python `FeatureDatabase`, which the
+SLAM and line bookkeeping read track by track; where the native library
+builds (`native.py`) a C++ store mirrors the camera-0 observations, and the
+mono MSCKF candidates are exported from it in one call, as the JAX driver
+does (SLAM-owned tracks then take candidate places and are masked out).
+Stereo bypasses it.  `feature_store` and the final report name the store
+the candidates came from.
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import native
 from ..config.options import EstimatorOptions
 from ..init.imu_wheel import IwInitializer
 from ..init.static_imu import try_static_init
@@ -168,6 +177,9 @@ class VioSystem:
         # the per-track path: feature store, frames waiting for IMU coverage,
         # the joint update's row collector, the wheel pairs' bookkeeping
         self.fdb = FeatureDatabase()
+        # the C++ store of the mono candidates (None where native.py cannot build it)
+        self.fdb_native = native.NativeFeatureDatabase() if native.available() else None
+        self.stereo = False  # set by feed_stereo: stereo bypasses the C++ store
         self.ldb = LineDatabase()
         self.pending_frames: deque = deque()
         self._joint_rows = None
@@ -342,7 +354,10 @@ class VioSystem:
         self._per_track_checks()
         uvs = np.atleast_2d(np.asarray(uvs, dtype=np.float64))
         if len(ids) > 0:
-            for fid, uv, uvn in zip(ids, uvs, self._undistort(uvs, 0)):
+            uvns = self._undistort(uvs, 0)
+            if self.fdb_native is not None:
+                self.fdb_native.update_batch(np.asarray(ids), float(t), uvs, uvns)
+            for fid, uv, uvn in zip(ids, uvs, uvns):
                 self.fdb.update(int(fid), float(t), uv, uvn)
         if line_ids is not None and len(line_ids) > 0:
             segs = np.atleast_2d(np.asarray(line_segs, dtype=np.float64))
@@ -365,6 +380,7 @@ class VioSystem:
         the right camera's observations enter the same tracks under camera
         1, and the MSCKF rows then carry a camera per observation."""
         self._per_track_checks()
+        self.stereo = True
         uvs1 = np.atleast_2d(np.asarray(uvs1, dtype=np.float64))
         if len(ids1) > 0:
             uvns1 = self._undistort(uvs1, 1 % self.layout.n_cams)
@@ -835,10 +851,23 @@ class VioSystem:
             out.add(float(times[cand].min()))
         return out
 
+    @property
+    def feature_store(self) -> str:
+        """The store the per-track MSCKF candidates come from: "native" (the
+        C++ store, mono) or "python"."""
+        return "native" if self.fdb_native is not None and not self.stereo else "python"
+
     def _db_cleanup(self, t_min):
+        if self.fdb_native is not None:
+            self.fdb_native.cleanup(t_min)
         self.fdb.cleanup(t_min)
         for t in [t for t in self.clone_wv if t < t_min]:
             del self.clone_wv[t]
+
+    def _db_remove(self, fids):
+        if self.fdb_native is not None:
+            self.fdb_native.remove(fids)
+        self.fdb.remove(fids)
 
     def _wheel_update(self):
         """Preintegrated relative-pose rows over consecutive clone pairs
@@ -1055,39 +1084,52 @@ class VioSystem:
             """The clones cover time ti (at a clone or between two)."""
             return ti in tmap or t_lo < ti < t_hi
 
-        cands = []
         slam_fids = self._slam_fids()  # SLAM landmarks update in the state, not as MSCKF rows
-        for fid, tr in self.fdb.tracks.items():
-            if fid in slam_fids:
-                continue
-            n_usable = sum(1 for ti in tr.times if usable(ti))
-            if n_usable < op.min_track_length:
-                continue
-            if tr.times[-1] < t_frame or any(ti in marg_times for ti in tr.times):
-                cands.append((n_usable, fid))
-        if not cands:
-            return
-        cands.sort(reverse=True)
-        cands = cands[:op.max_msckf]
         Fn, O = op.max_msckf, lo.n_clones
-        obs_uv = np.zeros((Fn, O, 2))
-        obs_uvn = np.zeros((Fn, O, 2))
-        obs_t = np.zeros((Fn, O))
-        obs_valid = np.zeros((Fn, O), dtype=bool)
         obs_cam = np.zeros((Fn, O), dtype=np.int64)
-        used_fids = []
-        for i, (_, fid) in enumerate(cands):
-            tr = self.fdb.tracks[fid]
-            j = 0
-            for k, (ti, uv, uvn) in enumerate(zip(tr.times, tr.uvs, tr.uvns)):
-                if usable(ti) and j < O:
-                    obs_uv[i, j] = uv
-                    obs_uvn[i, j] = uvn
-                    obs_t[i, j] = ti
-                    obs_cam[i, j] = tr.cam_of(k)
-                    obs_valid[i, j] = True
-                    j += 1
-            used_fids.append(fid)
+        if self.feature_store == "native":
+            # the C++ export selects among every track, SLAM-owned ones included:
+            # those keep their candidate places with no valid observation
+            n_cands, fids, obs_uv, obs_uvn, _, _, _, obs_t, obs_valid = \
+                self.fdb_native.export_msckf(vt, vslots.astype(np.int32), sorted(marg_times),
+                                             t_frame, op.min_track_length, Fn, O)
+            if n_cands == 0:
+                return
+            fids = fids[:n_cands].tolist()
+            obs_valid[:n_cands] &= np.array([fid not in slam_fids for fid in fids])[:, None]
+            used_fids = [fid for fid in fids if fid not in slam_fids]
+        else:
+            cands = []
+            for fid, tr in self.fdb.tracks.items():
+                if fid in slam_fids:
+                    continue
+                n_usable = sum(1 for ti in tr.times if usable(ti))
+                if n_usable < op.min_track_length:
+                    continue
+                if tr.times[-1] < t_frame or any(ti in marg_times for ti in tr.times):
+                    cands.append((n_usable, fid))
+            if not cands:
+                return
+            cands.sort(reverse=True)
+            cands = cands[:op.max_msckf]
+            n_cands = len(cands)
+            obs_uv = np.zeros((Fn, O, 2))
+            obs_uvn = np.zeros((Fn, O, 2))
+            obs_t = np.zeros((Fn, O))
+            obs_valid = np.zeros((Fn, O), dtype=bool)
+            used_fids = []
+            for i, (_, fid) in enumerate(cands):
+                tr = self.fdb.tracks[fid]
+                j = 0
+                for k, (ti, uv, uvn) in enumerate(zip(tr.times, tr.uvs, tr.uvns)):
+                    if usable(ti) and j < O:
+                        obs_uv[i, j] = uv
+                        obs_uvn[i, j] = uvn
+                        obs_t[i, j] = ti
+                        obs_cam[i, j] = tr.cam_of(k)
+                        obs_valid[i, j] = True
+                        j += 1
+                used_fids.append(fid)
 
         # the interpolated-pose table over the unique measurement times
         # (order from intr_order, or the dynamic selection)
@@ -1143,9 +1185,9 @@ class VioSystem:
             Hx, Hf, r, rowmask, st.cov, s2_rows, self.chi2_table, op.chi2_mult)
         n_ok = int(self._host(feat_ok.sum()))
         self.stats["cam_accept"] += n_ok
-        self.stats["cam_reject"] += len(cands) - n_ok
+        self.stats["cam_reject"] += n_cands - n_ok
         if n_ok == 0:
-            self.fdb.remove(used_fids)
+            self._db_remove(used_fids)
             return
 
         M = Fn * Hn.shape[2]
@@ -1161,7 +1203,7 @@ class VioSystem:
             self.state = ekf.update(self.state, Hc, rc, torch.full_like(rc, r_unit), cmask)
             self.stats["updates"] += 1
         # consumed: MSCKF features are fire-and-forget
-        self.fdb.remove(used_fids)
+        self._db_remove(used_fids)
 
     # ------------------------------------------------------------------
     # SLAM landmarks and the line update
@@ -1245,7 +1287,7 @@ class VioSystem:
                 if self._slam_fail[slot] > 3:
                     fid = int(self._slam_id[slot])
                     self._marginalize_slam(slot)
-                    self.fdb.remove([fid])
+                    self._db_remove([fid])
 
         # (b) initialize new landmarks into free slots
         free = [int(s) for s in np.nonzero(~self._slam_valid)[0]]
@@ -1464,4 +1506,6 @@ class VioSystem:
             out["gps"] = dict(self.gps.stats)
         if self.zupt is not None:
             out["zupt"] = dict(self.zupt.stats)
+        if self._path == "tracks":
+            out["feature_store"] = self.feature_store
         return out

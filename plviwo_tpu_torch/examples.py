@@ -458,8 +458,8 @@ def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = Fal
     wheel samples and frames due by then, then the sample itself.  With plc
     each frame's lines also carry their attached points (`attached_points`).
     With images each frame is instead the rendered image (and with stereo
-    the right one), without lines, for a host tracker (`feed_tracked`), as
-    run_sim --images --host-tracker draws them.
+    the right one), with the lines drawn when lines is set, for the host
+    trackers (`feed_tracked`), as run_sim --images --host-tracker draws them.
     Works with the port's simulator and the JAX package's.  Returns
     [(kind, args)] with kind in "gps", "wheel", "camera", "stereo", "imu"
     (the arguments of VioSystem.feed_gps_enu, feed_wheel, feed_camera,
@@ -468,8 +468,8 @@ def track_events(sim, stereo: bool = False, wheel: bool = False, gps: bool = Fal
 
     def frame(t):
         if images:
-            return ("frame", (float(t), sim.render_frame(t, with_lines=False))
-                    + ((sim.render_frame(t, with_lines=False, cam=1),) if stereo else ()))
+            return ("frame", (float(t), sim.render_frame(t, with_lines=lines))
+                    + ((sim.render_frame(t, with_lines=lines, cam=1),) if stereo else ()))
         out = sim.cam_frame(t, cam=0) + (sim.cam_frame(t, cam=1) if stereo else ())
         if lines:
             lids, segs = sim.line_frame(t)
@@ -542,36 +542,55 @@ def feed(system, kind: str, args):
      "imu": system.feed_imu}[kind](*args)
 
 
-def feed_tracked(system, tracker, kind: str, args):
+def feed_tracked(system, tracker, kind: str, args, line_tracker=None):
     """`feed`, with a "frame" event's images run through a host KLT tracker
     (`update/tracker.py`) into feed_camera (feed_stereo with a right
-    image)."""
+    image); with a line tracker (`update/line_tracker.py`) the left image's
+    lines too, attached to the left points, as run_sim --images
+    --host-tracker --lines feeds them."""
     if kind != "frame":
         return feed(system, kind, args)
     t, *imgs = args
-    if len(imgs) == 2:
-        system.feed_stereo(t, *tracker.feed_stereo(*imgs))
-    else:
-        system.feed_camera(t, *tracker.feed(imgs[0]))
+    out = tracker.feed_stereo(*imgs) if len(imgs) == 2 else tracker.feed(imgs[0])
+    if line_tracker is not None:
+        out += line_tracker.feed(imgs[0], out[0], out[1])
+    (system.feed_stereo if len(imgs) == 2 else system.feed_camera)(t, *out)
 
 
-def host_tracker_system(sim, device=CUDA, stereo: bool = False, n_pts: int = 80,
-                        grid=(12, 10)):
-    """tests/test_tracker.py::test_image_driven_vio_e2e's filter and tracker
-    (80 slots on a 12 x 10 grid, 30 MSCKF features, sigma_pix 1.5, chi2 x 8,
-    tracks of >= 4; with stereo run_sim --stereo's two cameras and tracks of
-    >= 6), seeded from the ground truth at the first IMU sample.  Returns
-    (VioSystem, KltTracker or StereoKltTracker)."""
-    from .config.options import EstimatorOptions
-    from .core.system import VioSystem
-    from .update.tracker import KltTracker, StereoKltTracker
-
-    o = EstimatorOptions()
+def host_tracker_options(o, stereo: bool = False, n_pts: int = 80, lines: bool = False,
+                         wheel: bool = False, plc: bool = False):
+    """tests/test_tracker.py::test_image_driven_vio_e2e's filter options (80
+    slots, 30 MSCKF features, sigma_pix 1.5, chi2 x 8, tracks of >= 4; with
+    stereo run_sim --stereo's two cameras and tracks of >= 6); with lines
+    run_sim --images --host-tracker --lines's (20 lines, sigma_pix_line 2.5,
+    the point-line-coupled rows with plc); with the wheel run_sim --wheel's
+    W3D_ANG rows.  Works on the port's options and the JAX package's.
+    Returns o."""
     o.cam.n_pts, o.cam.max_msckf, o.cam.sigma_pix = n_pts, 30, 1.5
     o.cam.min_track_length, o.cam.chi2_mult = 4, 8.0
     if stereo:
         o.cam.max_n, o.cam.min_track_length = 2, 6
-    s = VioSystem(o, device=device)
+    if lines:
+        o.cam.use_lines, o.cam.max_lines, o.cam.sigma_pix_line, o.cam.use_plc = True, 20, 2.5, plc
+    if wheel:
+        w = o.wheel
+        w.enabled, w.type, w.chi2_mult = True, "Wheel3DAng", 10.0
+        w.noise_w, w.noise_v, w.noise_p = 0.05, 0.05, 0.02
+    return o
+
+
+def host_tracker_system(sim, device=CUDA, stereo: bool = False, n_pts: int = 80,
+                        grid=(12, 10), **options):
+    """A VioSystem with `host_tracker_options(stereo, n_pts, **options)`,
+    seeded from the ground truth at the first IMU sample, and its KLT
+    tracker (n_pts slots on a 12 x 10 grid).  Returns (VioSystem,
+    KltTracker or StereoKltTracker)."""
+    from .config.options import EstimatorOptions
+    from .core.system import VioSystem
+    from .update.tracker import KltTracker, StereoKltTracker
+
+    s = VioSystem(host_tracker_options(EstimatorOptions(), stereo, n_pts, **options),
+                  device=device)
     c = sim.cfg
     live_calibrate(s, sim, float(sim.imu_t[0]))
     tracker = (StereoKltTracker if stereo else KltTracker)(

@@ -6,8 +6,8 @@ slices of a zero-padded image as the JAX package writes them (no
 convolution call: cuDNN would run a float32 convolution in TF32), so both
 packages take the same multiply-adds in the same order.  The frame
 equalizes with `hist_equalize_quantile`; the host trackers with the LUT
-variant `hist_equalize`.  `bilinear_sample` is off every ported path and
-not ported.
+variant `hist_equalize`.  `bilinear_sample` serves the host line
+tracker's anchor walk (`line_detect.detect_segments`).
 """
 
 from __future__ import annotations
@@ -139,3 +139,21 @@ def shi_tomasi_score(img):
     det = gxx * gyy - gxy * gxy
     disc = torch.sqrt(torch.clamp(tr * tr / 4.0 - det, min=0.0))
     return tr / 2.0 - disc
+
+
+def bilinear_sample(img, xy):
+    """Bilinear samples of a (C, H, W) stack at subpixel points xy (..., 2)
+    = (x, y): (C, ...).  Coordinates clamp to [0, W - 1.001] x [0, H -
+    1.001] (callers mask out-of-bounds points separately); the four taps
+    are gathered at once and weighted in the JAX package's order of
+    products and sums."""
+    C, H, W = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    at = y0.long() * W + x0.long()
+    taps = img.reshape(C, H * W)[:, torch.stack([at, at + 1, at + W, at + W + 1])]
+    i00, i01, i10, i11 = taps.unbind(1)
+    gx, gy = 1 - fx, 1 - fy
+    return i00 * gx * gy + i01 * fx * gy + i10 * gx * fy + i11 * fx * fy

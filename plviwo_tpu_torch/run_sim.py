@@ -8,11 +8,12 @@ Without --images the camera stream is the simulator's data association
 (tracked ids and pixels, `Simulator.cam_frame`) into the per-track path
 (`feed_camera` / `feed_stereo`); with --images, rendered frames into the
 images-in path (`feed_image`), or with --images --host-tracker into the
-host KLT trackers (`update/tracker.py`, LK on the card's kernel) and from
-them into the per-track path.  --auto-init starts the filter from the
-IMU(+wheel) initializer instead of the ground truth (the ATE then aligns
-position and yaw); --imu-res interpolates the per-track poses by
-continuous preintegration.
+host KLT trackers (`update/tracker.py`, LK on the card's kernel; with
+--lines also the host line tracker, `update/line_tracker.py`, fed the point
+tracker's ids and pixels) and from them into the per-track path.
+--auto-init starts the filter from the IMU(+wheel) initializer instead of
+the ground truth (the ATE then aligns position and yaw); --imu-res
+interpolates the per-track poses by continuous preintegration.
 
 Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --wheel --gps --out traj.txt
@@ -21,6 +22,7 @@ Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --gps
     python -m plviwo_tpu_torch.run_sim --images --lines --wheel --dynamic --clone-freq 10
     python -m plviwo_tpu_torch.run_sim --images --host-tracker --stereo --wheel --gps
+    python -m plviwo_tpu_torch.run_sim --images --host-tracker --lines --wheel [--plc]
     python -m plviwo_tpu_torch.run_sim --wheel --auto-init --imu-res
 
 Options of the JAX driver that the port does not run yet exit non-zero
@@ -42,7 +44,7 @@ _NOT_PORTED = {
 # options only the per-track path reads (JAX's feed_image path ignores them)
 # -> the ROADMAP queue that ported them there
 _TRACKS_ONLY = {"intr_order": "A9a", "calib": "A9a", "sequential_update": "A9a",
-                "max_msckf": "A9a", "imu_res": "A9c"}
+                "max_msckf": "A9a", "plc": "A9b", "imu_res": "A9c"}
 
 
 def _parser():
@@ -105,18 +107,11 @@ def _parser():
 def _refusals(args):
     what = [f"--{f.replace('_', '-')}: ROADMAP {q}" for f, q in _NOT_PORTED.items()
             if getattr(args, f) not in (False, None)]
-    if args.images and args.host_tracker and args.lines:
-        what.append("--lines with --host-tracker: the host line tracker runs the anchor-walk "
-                    "detector (ROADMAP A9d)")
     if args.images and not args.host_tracker:
         what += [f"--{f.replace('_', '-')} with --images: the images-in path does not read it "
                  f"(ROADMAP {q} ported it for the per-track path: run without --images or with "
                  "--host-tracker)"
                  for f, q in sorted(_TRACKS_ONLY.items()) if getattr(args, f) not in (False, None)]
-    if args.images:
-        if args.plc:
-            what.append("--plc with --images: the attached point ids come from the host "
-                        "trackers (ROADMAP A9d)")
     return what
 
 
@@ -182,6 +177,8 @@ def main(argv=None):
         # the host trackers' settings
         opts.cam.sigma_pix = max(opts.cam.sigma_pix, 1.5)
         opts.cam.chi2_mult = 8.0
+        if args.lines:
+            opts.cam.sigma_pix_line = 2.5
     elif args.images:
         # the images-in frame's settings
         if args.fused_f64:
@@ -239,17 +236,15 @@ def main(argv=None):
     feeds = {"gps": sys_.feed_gps_enu, "wheel": sys_.feed_wheel, "image": sys_.feed_image,
              "camera": sys_.feed_camera, "stereo": sys_.feed_stereo}
     if tracked:
+        from .examples import feed_tracked
+        from .update.line_tracker import LineTracker
         from .update.tracker import KltTracker, StereoKltTracker
 
         tracker = (StereoKltTracker if args.stereo else KltTracker)(
             n_pts=80, cam_k=np.asarray(cfg.intrinsics), grid_x=12, grid_y=10, device=args.device)
-
-        def feed_tracked(t, img, img_r=None):
-            if img_r is None:
-                sys_.feed_camera(t, *tracker.feed(img))
-            else:
-                sys_.feed_stereo(t, *tracker.feed_stereo(img, img_r))
-        feeds["tracked"] = feed_tracked
+        ltracker = (LineTracker(max_lines=opts.cam.max_lines, min_length=30.0, device=args.device)
+                    if args.lines else None)
+        feeds["tracked"] = lambda *a: feed_tracked(sys_, tracker, "frame", a, ltracker)
     nxt = [0] * len(streams)
 
     t_wall = time.time()

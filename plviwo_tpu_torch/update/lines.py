@@ -8,8 +8,8 @@ the per-segment classification against them, and the point-to-segment
 assignment.  Jacobians come from one batched forward-mode pass
 (`ops.jac.jacfwd_batched`, a `torch.func.jvp`) of the residual; the JAX
 version uses `jax.jacfwd`.  No kernel runs inside it.  Every function is
-ported; the host line tracker that calls `line_detect.merge_segments` is
-ROADMAP A9d.
+ported; the host line tracker (`update/line_tracker.py`) attaches points
+with `assign_points_to_lines`.
 """
 
 from __future__ import annotations

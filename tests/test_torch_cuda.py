@@ -520,11 +520,20 @@ def test_per_track_lines_and_slam_on_the_card_match_the_cpu(cuda_device, mode):
 
 
 def _system_on(system, device):
-    """A copy of a per-track VioSystem with its device state on `device`."""
+    """A copy of a mono per-track VioSystem with its device state on
+    `device` (its C++ feature store, which cannot be copied, rebuilt from
+    the Python store's tracks)."""
     import copy
     import dataclasses
 
-    out = copy.deepcopy(system)
+    from plviwo_tpu_torch import native
+
+    out = copy.deepcopy(system, {id(system.fdb_native): None})
+    if system.fdb_native is not None:
+        out.fdb_native = native.NativeFeatureDatabase()
+        for fid, tr in out.fdb.tracks.items():
+            for t, uv, uvn in zip(tr.times, tr.uvs, tr.uvns):
+                out.fdb_native.update(fid, t, uv, uvn)
     for name, value in list(vars(out).items()):
         if isinstance(value, torch.Tensor):
             setattr(out, name, value.to(device))
@@ -603,3 +612,74 @@ def test_interpolation_weights_on_the_card_match_the_cpu(cuda_device):
     for a, b in zip(card, cpu):
         scale = max(1.0, float(torch.max(torch.abs(b))))
         assert float(torch.max(torch.abs(a.cpu() - b))) <= 1e-12 * scale
+
+
+@pytest.fixture
+def line_frames(cuda_device):
+    """Rendered frames with lines (seed 2, 640 x 480) and the CPU KLT
+    tracker's point tracks on them."""
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+    from plviwo_tpu_torch.update.tracker import KltTracker
+
+    sim = Simulator(SimConfig(duration=2.0, seed=2, n_lines=40))
+    kt = KltTracker(n_pts=80, cam_k=np.asarray(sim.cfg.intrinsics), device="cpu")
+    out = []
+    for t in sim.cam_times()[:8]:
+        img = sim.render_frame(t, with_lines=True)
+        out.append((img,) + kt.feed(img))
+    return out
+
+
+@pytest.mark.cuda
+def test_line_tracker_on_the_card_matches_the_cpu(cuda_device, line_frames):
+    """The anchor walk and the line tracker on the card against the CPU on
+    the same frames and point tracks: the walk's candidates within 1e-3 px
+    (valid equal), line ids and attached ids equal, segments within 1e-3 px."""
+    from plviwo_tpu_torch.ops import line_detect
+    from plviwo_tpu_torch.update.line_tracker import LineTracker
+
+    img = torch.as_tensor(line_frames[0][0], dtype=torch.float32)
+    card = [x.cpu() for x in line_detect.detect_segments(img.to(cuda_device))]
+    cpu = line_detect.detect_segments(img)
+    assert torch.equal(card[2], cpu[2]) and int(cpu[2].sum()) > 50
+    assert float((card[0] - cpu[0]).abs().max()) <= 1e-3
+    on_card = LineTracker(max_lines=30, min_length=30.0, device=cuda_device)
+    on_cpu = LineTracker(max_lines=30, min_length=30.0, device="cpu")
+    n = 0
+    for img, ids, uvs in line_frames:
+        got, want = on_card.feed(img, ids, uvs), on_cpu.feed(img, ids, uvs)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert len(got[2]) == len(want[2])
+        for a, b in zip(got[2], want[2]):
+            np.testing.assert_array_equal(a, b)
+        if len(got[0]):
+            np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-3)
+        n += len(got[0])
+    assert n > 40 and on_card.host_reads == 2 * len(line_frames)
+
+
+@pytest.mark.cuda
+def test_run_kaist_on_the_card(cuda_device, tmp_path):
+    """run_kaist over a 2 s fixture (640 x 480 at 8 Hz) on the card: the
+    summary, the native store, one LK launch a frame after the first."""
+    import contextlib
+    import io
+    import json
+
+    from plviwo_tpu_torch import run_kaist
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.sim.kaist_fixture import generate_kaist_fixture, write_fixture_config
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=4.0, n_landmarks=350, n_lines=40, seed=5))
+    root = str(tmp_path / "fixture")
+    generate_kaist_fixture(root, sim, t_start=1.0, duration=2.0, cam_hz=8.0)
+    master = write_fixture_config(str(tmp_path), sim.cfg)
+    lk_kernel.lk_pyramid.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_kaist.main(["--root", root, "--config", master, "--wheel", "--lines"])
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert rc == 0 and out["frames"] == 16 and out["device"] == torch.cuda.get_device_name(0)
+    assert out["feature_store"] == "native" and out["ate_rmse_m"] < 0.5, out
+    assert lk_kernel.lk_pyramid.launches == out["frames"] - 1

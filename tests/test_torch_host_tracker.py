@@ -229,7 +229,7 @@ def test_image_driven_vio_e2e():
 
 
 def jax_constants():
-    """The JAX driver's numbers that chip_smoke.py phases 23-26 hold the card
+    """The JAX driver's numbers that chip_smoke.py phases 23-28 hold the card
     to, on the CPU (the JAX package as it ships, its Python feature store)."""
     import chip_smoke
     from plviwo_tpu import run_sim as j_run_sim
@@ -292,15 +292,56 @@ def jax_constants():
         sim, chip_smoke.kaist_options(JOptions()),
         j_tracker.KltTracker(n_pts=150, cam_k=np.asarray(sim.cfg.intrinsics), grid_x=15,
                              grid_y=10), wheel=True)
+    out.update(jax_line_constants())
+    return out
+
+
+def jax_line_constants():
+    """The JAX drivers' numbers that chip_smoke.py phases 27-28 hold the card
+    to, on the CPU (the JAX package as it ships): phase 26's mono scenario
+    with the host line tracker and the wheel, without and with the
+    point-line-coupled rows (RMSE, m), and run_kaist --wheel --lines over
+    tests/test_kaist_e2e.py::test_run_kaist_e2e's fixture (ATE, m)."""
+    import tempfile
+
+    from plviwo_tpu import run_kaist as j_run_kaist
+    from plviwo_tpu.config.options import EstimatorOptions as JOptions
+    from plviwo_tpu.core.system import VioSystem as JVioSystem
+    from plviwo_tpu.sim.kaist_fixture import generate_kaist_fixture
+    from plviwo_tpu.update.line_tracker import LineTracker as JLineTracker
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.sim.kaist_fixture import write_fixture_config
+
+    out = {}
+    for name, plc in (("LINE_TRACKER_JAX_RMSE", False), ("LINE_TRACKER_PLC_JAX_RMSE", True)):
+        sim = JSimulator(JSimConfig(duration=8.0, seed=2, n_landmarks=350))
+        s = JVioSystem(examples.host_tracker_options(JOptions(), lines=True, wheel=True, plc=plc))
+        examples.live_calibrate(s, sim, float(sim.imu_t[0]))
+        tracker = j_tracker.KltTracker(cam_k=np.asarray(sim.cfg.intrinsics), **TRACKER)
+        lines = JLineTracker(max_lines=s.opts.cam.max_lines, min_length=30.0)
+        for kind, args in examples.track_events(sim, wheel=True, images=True, lines=True):
+            examples.feed_tracked(s, tracker, kind, args, lines)
+        errs = [np.linalg.norm(p - np.asarray(sim.gt_kin(t)["p_IinG"])) for t, _, p in s.traj]
+        out[name] = float(np.sqrt(np.mean(np.square(errs))))
+    with tempfile.TemporaryDirectory() as d:
+        sim = JSimulator(JSimConfig(duration=16.0, n_landmarks=350, n_lines=40, width=640,
+                                    height=480, seed=5))
+        generate_kaist_fixture(d, sim, t_start=1.0, duration=12.0, cam_hz=8.0)
+        master = write_fixture_config(d, sim.cfg)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            j_run_kaist.main(["--root", d, "--config", master, "--wheel", "--lines"])
+    out["KAIST_REPLAY_JAX_ATE"] = json.loads(buf.getvalue().strip().splitlines()[-1])[
+        "ate_rmse_m"]
     return out
 
 
 @pytest.mark.slow
 def test_chip_smoke_jax_constants():
-    """chip_smoke.py's constants for phases 23-26 (the CPI pair, the
+    """chip_smoke.py's constants for phases 23-28 (the CPI pair, the
     AUTO_INIT_JAX pair, TRACKER_JAX_RMSE, STEREO_TRACKER_JAX_ATE,
-    STEREO_JAX_RIGHT, KAIST_TRACKER_JAX_ATE), recomputed with the JAX
-    package on the CPU.  XLA:CPU on another processor may round
+    STEREO_JAX_RIGHT, KAIST_TRACKER_JAX_ATE, the LINE_TRACKER pair,
+    KAIST_REPLAY_JAX_ATE), recomputed with the JAX package on the CPU.  XLA:CPU on another processor may round
     differently: a mismatch means re-measuring, not a fault of the port."""
     import chip_smoke
 

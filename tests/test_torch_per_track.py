@@ -717,7 +717,8 @@ JAX_SUMMARY_KEYS = {"frames", "ate_rmse_m", "max_err_m", "updates", "accept_rate
 def test_run_sim_per_track_matches_jax_summary():
     rc, out = _run_main(run_sim, ["--device", "cpu", "--duration", "1.5"])
     assert rc == 0
-    assert set(out) == JAX_SUMMARY_KEYS | {"device"} and out["device"] == "cpu"
+    assert set(out) == JAX_SUMMARY_KEYS | {"device", "feature_store"}
+    assert out["device"] == "cpu" and out["feature_store"] == "native"
     assert (out["frames"], out["updates"], out["accept_rate"]) == (13, 10, 0.914)
 
 

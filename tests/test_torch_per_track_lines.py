@@ -6,8 +6,10 @@ classification (ties and invalid points included), the direction-constrained
 triangulations, the line systems with point-line-coupled (PLC) rows, the
 point-to-segment assignment, and `VioSystem.feed_camera` with lines frame by
 frame, with `run_sim --lines` without --images.  Inputs are numpy arrays made
-from a seed, or the two simulators' streams; the JAX driver runs its Python
-feature store (`fdb_native = None`).
+from a seed, or the two simulators' streams; both drivers export their mono
+MSCKF candidates through the C++ feature store (the JAX driver is handed
+the port's build of native/feature_db.cpp, `native_store`), as each does
+where the library builds.
 
 Tolerances: `line_frame` ids equal and segments within 1e-12 px, with the
 generators in step after it; the line databases and every majority class
@@ -60,6 +62,7 @@ from plviwo_tpu.update import cam_helper as j_cam
 from plviwo_tpu.update import feature_db as j_fdb
 from plviwo_tpu.update import lines as j_lines
 from plviwo_tpu_torch import examples, run_sim
+from plviwo_tpu_torch import native as port_native
 from plviwo_tpu_torch.config.options import EstimatorOptions
 from plviwo_tpu_torch.core.system import VioSystem
 from plviwo_tpu_torch.ops import lie
@@ -398,10 +401,17 @@ def _line_scenario(mode):
     return sim, options, events
 
 
+def native_store():
+    """The port's C++ feature store for a JAX VioSystem (the two packages'
+    ctypes wrappers take the same calls), or None where it does not build,
+    as the port's VioSystem then has none."""
+    return port_native.NativeFeatureDatabase() if port_native.available() else None
+
+
 def drive(sim_kw, options, events_kw, port):
-    """Run one scenario through the port's or JAX's VioSystem (the JAX one
-    with its Python feature store, GPS in the world frame); returns the
-    system and per frame (stats with whether the GPS is initialized,
+    """Run one scenario through the port's or JAX's VioSystem (both with
+    the C++ feature store, `native_store`; GPS in the world frame); returns
+    the system and per frame (stats with whether the GPS is initialized,
     position, covariance, active SLAM ids)."""
     if port:
         sim = Simulator(SimConfig(**sim_kw))
@@ -409,7 +419,7 @@ def drive(sim_kw, options, events_kw, port):
     else:
         sim = JSimulator(JSimConfig(**sim_kw))
         system = JVioSystem(options(JOptions()))
-        system.fdb_native = None
+        system.fdb_native = native_store()
     events = examples.track_events(sim, gps=system.gps is not None, **events_kw)
     c = sim.cfg
     system.set_calibration(np.asarray(c.intrinsics), np.asarray(c.cam_ext_q),
@@ -536,7 +546,8 @@ JAX_RUN_SIM = {("--lines", "--plc"): (13, 10, 0.907, 0.769, 0.0),
 def test_run_sim_lines_matches_jax_summary(flags):
     rc, out = _run_main(run_sim, ["--device", "cpu", "--duration", "1.5", *flags])
     assert rc == 0
-    assert set(out) == JAX_SUMMARY_KEYS | {"device"} and out["device"] == "cpu"
+    assert set(out) == JAX_SUMMARY_KEYS | {"device", "feature_store"}
+    assert out["device"] == "cpu" and out["feature_store"] == "native"
     got = tuple(out[k] for k in ("frames", "updates", "cam_accept_rate", "line_accept_rate",
                                  "wheel_accept_rate"))
     assert got == JAX_RUN_SIM[flags]

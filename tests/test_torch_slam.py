@@ -5,8 +5,10 @@ The landmark representations (`cam_helper.rep_to_xyz`, `xyz_to_rep`,
 representations, `ekf.marginalize_slam_slot`, the GPS 4-DoF init with
 inverse-depth landmarks (marginalized before the rotation into ENU), and
 `VioSystem` with `cam.max_slam > 0` frame by frame.  Inputs are numpy
-arrays made from a seed, or the two simulators' streams; the JAX driver runs
-its Python feature store (`fdb_native = None`).
+arrays made from a seed, or the two simulators' streams; both drivers export
+their mono MSCKF candidates through the C++ feature store (the JAX driver
+handed the port's build, tests/test_torch_per_track_lines.py::native_store),
+where SLAM-owned tracks take candidate places and are masked out.
 
 Tolerances: the representations and their round trip within 1e-12 of
 max(1, max|x|), the Jacobian within 1e-12 of JAX's and 1e-6 of central

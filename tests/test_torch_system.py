@@ -443,9 +443,8 @@ def test_run_sim_cli(capsys):
 @pytest.mark.parametrize("argv,queue", [
     (["--images", "--dynamic", "--intr-order", "3"], "A9a"),
     (["--images", "--tags"], "A9d"), (["--images", "--imu-res"], "A9c"),
-    (["--images", "--calib"], "A9a"), (["--images", "--lines", "--plc"], "A9d"),
-    (["--images", "--record", "out"], "A10"), (["--images", "--sequential-update"], "A9a"),
-    (["--images", "--host-tracker", "--lines"], "A9d")])
+    (["--images", "--calib"], "A9a"), (["--images", "--lines", "--plc"], "A9b"),
+    (["--images", "--record", "out"], "A10"), (["--images", "--sequential-update"], "A9a")])
 def test_run_sim_refuses_unported_modes(capsys, argv, queue):
     assert run_sim.main(["--device", "cpu"] + argv) != 0
     err = capsys.readouterr()
