@@ -105,35 +105,49 @@ Phases (any failure raises, so the exit code is non-zero):
   25. ZUPT: tests/test_zupt.py's two streams (stationary from a wrong start
      velocity: applied > 0, |v| < 0.05 m/s; moving: applied == 0), syncs
      per IMU sample and those outside a ZUPT update;
-  26. the host KLT trackers (`update/tracker.py`) on rendered frames into
-     the per-track path: tests/test_tracker.py::test_image_driven_vio_e2e's
-     scenario (updates > 30, RMSE < 0.6 m and within 1.5x of JAX's tracker
-     as it ships), run_sim --images --host-tracker --stereo's (within 1.5x
-     of JAX's; the right observations kept), and phase 17's KAIST width fed
-     by a 150-point tracker (ATE < 1.0 m and within 1.5x of JAX's driver
-     with JAX's tracker): exactly one LK launch a mono frame and two a
-     stereo frame after the first, and LK against its plain version on the
-     trackers' last-frame arguments (B = 1, N = 80 and 150), with times and
-     bounds; readings as phase 16 plus the tracker's ms a frame.
+  26. the host KLT trackers (`update/tracker.py`, JAX's gather LK in plain
+     torch) on rendered frames into the per-track path:
+     tests/test_tracker.py::test_image_driven_vio_e2e's scenario (updates >
+     30, RMSE < 0.6 m and within 1.5x of JAX's tracker as it ships), run_sim
+     --images --host-tracker --stereo's (within 1.5x of JAX's; the right
+     observations kept), and phase 17's KAIST width fed by a 150-point
+     tracker (ATE < 1.0 m and within 1.5x of JAX's driver with JAX's
+     tracker): no kernel launch; readings as phase 16 plus the tracker's ms
+     a frame and its host operators in one frame.
   27. the host line tracker (`update/line_tracker.py`, the anchor walk) on
      rendered frames with lines: phase 26's mono scenario with the lines and
      the wheel (run_sim --images --host-tracker --lines --wheel's
      settings), then with the point-line-coupled rows: RMSE within 1.5x of
-     JAX's driver with JAX's trackers as they ship, line_accept > 0, one LK
-     launch a frame after the first; the line tracker on the card against
-     its CPU run on the same frames and point tracks (line ids and attached
-     ids equal, segments within 1e-3 px); readings as phase 16 plus the
-     trackers' ms a frame and the line tracker's host operators a frame;
+     JAX's driver with JAX's trackers as they ship, line_accept > 0, no
+     kernel launch; the line tracker on the card against its CPU run on the
+     same frames and point tracks (line ids and attached ids equal, segments
+     within 1e-3 px); readings as phase 16 plus the trackers' ms a frame and
+     the line tracker's host operators a frame;
   28. `run_kaist` over a KAIST-layout fixture written here by the port's
      `generate_kaist_fixture` at tests/test_kaist_e2e.py::test_run_kaist_e2e's
      settings (640 x 480, 8 Hz, 12 s) with that test's layered config and
      --wheel --lines: that test's gates (frames >= 90, clones > 50, updates
-     > 30, ATE < 1.0 m) and ATE within 1.5x of JAX's run_kaist; LK launches
-     equal frames - 1; the native feature store taken; p50 / p90 a frame of
-     the point tracker, the line tracker and the filter, syncs a frame, and
-     whether PyYAML and Pillow are installed (the port reads neither).
-Phases 16-25 launch no kernel (asserted): no TPU kernel lies on JAX's
-per-track path, CPI, ZUPT or the initializers.  Synthetic gate/Gram checks
+     > 30, ATE < 1.0 m) and ATE within 1.5x of JAX's run_kaist; no kernel
+     launch; the native feature store taken; p50 / p90 a frame of the point
+     tracker, the line tracker and the filter, syncs a frame, and whether
+     PyYAML and Pillow are installed (the port reads neither).
+  29. fiducial tags (`ops/aruco.py`, `update/aruco_tracker.py`, the
+     simulator's ground tags): the detector on three painted 640 x 480
+     frames, card against CPU and both against the painted corners; the NCC
+     bank in FP32 with TF32 switched on globally (within 1e-4 of float64);
+     tests/test_aruco.py's ground-tag world consistency (>= 8 hits, median <
+     1.5 px, max < 4 px); run_sim --tags --duration 8 --seed 2 (ATE < 1.0 m,
+     beside JAX's); the NCC and detector ms a frame, the tracker's ms;
+  30. the descriptor tracker (`update/desc_tracker.py`):
+     tests/test_descriptor.py::test_desc_tracker_e2e's scenario
+     (cam_accept > 10, RMSE < 1.0 m, beside JAX's), its ms and reads a frame;
+  31. run_sim --record --viz-dir on the card (per-track and images-in),
+     `eval ate`, `rpe` and `nees` over the recorded files, a checkpoint
+     halfway through a replay resumed on the card and equal to the unbroken
+     run, and the syncs a frame with the recorder and viz off and on.
+Phases 16-31 launch no kernel (asserted): no TPU kernel lies on JAX's
+per-track path, CPI, ZUPT, the initializers, its host trackers (gather LK),
+the tag and descriptor trackers or the utilities.  Synthetic gate/Gram checks
 also run at the stereo shapes.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.  The script imports no
@@ -190,6 +204,10 @@ KAIST_TRACKER_JAX_ATE = 0.11601727665645131
 # the same test
 LINE_TRACKER_JAX_RMSE, LINE_TRACKER_PLC_JAX_RMSE = 0.07870616962629386, 0.07929164920492474
 KAIST_REPLAY_JAX_ATE = 0.10269945706667286
+# phase 29's ATE from JAX's run_sim --tags --duration 8 --seed 2 (m, its summary's 4 digits)
+# and phase 30's RMSE from tests/test_descriptor.py::test_desc_tracker_e2e's scenario (m),
+# JAX as it ships on the CPU, recomputed by the same test
+TAGS_JAX_ATE, DESC_JAX_RMSE = 0.2949, 0.25226061231847174
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -1813,11 +1831,10 @@ def phase_host_tracker(dev):
     config_camera.yaml's 150 points (a 15 x 10 grid: one cell per slot, as
     the images-in driver sizes it) on rendered frames: ATE < 1.0 m and
     within 1.5x of JAX's driver with JAX's tracker on the CPU
-    (KAIST_TRACKER_JAX_ATE).  LK launches exactly once a mono frame and
-    twice a stereo frame after the first (temporal, L->R; the first frame
-    only detects); no gate/Gram launch.  Readings as phase 16, plus the
-    tracker's own ms a frame.  Returns readings with the last LK call's
-    arguments of each run."""
+    (KAIST_TRACKER_JAX_ATE).  The trackers run JAX's gather LK
+    (`klt.pyramidal_lk`, plain torch: JAX runs it outside any kernel), so
+    no kernel launches on these paths.  Readings as phase 16, plus the
+    tracker's own ms a frame and its host operators in one frame."""
     from plviwo_tpu_torch import examples
     from plviwo_tpu_torch.config.options import EstimatorOptions
     from plviwo_tpu_torch.core.system import VioSystem
@@ -1843,22 +1860,18 @@ def phase_host_tracker(dev):
             else:
                 s.feed_camera(args[0], *out)
 
-        capture = {}
         events = examples.track_events(sim, stereo=stereo, wheel=wheel, images=True)
-        with recording(capture, n_gram=1):
-            r = drive_track(system, events, feed=feed)
+        r = drive_track(system, events, feed=feed)
         rmse, _ = track_rmse(sim, system)
         n = len(trk_ms)
-        want = {"lk_pyramid": (2 if stereo else 1) * n - 1, "msckf_gram_gate": 0}
         p50, p90 = float(np.percentile(trk_ms, 50)), float(np.percentile(trk_ms, 90))
         kept = (f"; right observations kept {sum(right)} ({sum(right) / n:.2f} a frame)"
                 if stereo else "")
         track_report(tag, system, r, f"; RMSE {rmse:.4f} m; {n} frames tracked, tracker "
                      f"{p50:.3f} / {p90:.3f} ms a frame (p50 / p90; the 11th frame's ms is "
-                     f"that of a count of its {ops[0]} host operators){kept}", launches=want)
+                     f"that of a count of its {ops[0]} host operators){kept}")
         return dict(r, rmse=rmse, tracked=n, tracker_p50_ms=p50, tracker_p90_ms=p90,
-                    tracker_ops=ops[0], right=sum(right), stats=dict(system.stats),
-                    lk=capture["lk"])
+                    tracker_ops=ops[0], right=sum(right), stats=dict(system.stats))
 
     out = {}
     sim = Simulator(SimConfig(duration=8.0, seed=2, n_landmarks=350))
@@ -1876,7 +1889,9 @@ def phase_host_tracker(dev):
     print(f"host trackers: mono RMSE {m['rmse']:.4f} m ({m['rmse'] / TRACKER_JAX_RMSE:.3f}x "
           f"JAX's), stereo {st['rmse']:.4f} m ({st['rmse'] / STEREO_TRACKER_JAX_ATE:.3f}x), KAIST "
           f"width {k['rmse']:.4f} m ({k['rmse'] / KAIST_TRACKER_JAX_ATE:.3f}x); right observations "
-          f"kept {st['right']} (JAX's gather tracker on the same frames: {STEREO_JAX_RIGHT})")
+          f"kept {st['right']} (JAX's tracker on the same frames: {STEREO_JAX_RIGHT}); tracker "
+          f"operators a frame: mono {m['tracker_ops']}, stereo {st['tracker_ops']}, KAIST "
+          f"width {k['tracker_ops']}")
     if not (m["stats"]["updates"] > 30 and m["rmse"] < 0.6 and m["rmse"] < 1.5 * TRACKER_JAX_RMSE
             and st["rmse"] < 1.5 * STEREO_TRACKER_JAX_ATE
             and k["rmse"] < 1.0 and k["rmse"] < 1.5 * KAIST_TRACKER_JAX_ATE):
@@ -1891,8 +1906,8 @@ def phase_host_line_tracker(dev):
     `KltTracker` and `LineTracker` (the anchor walk, 20 lines of >= 30 px)
     into `feed_camera` with the wheel, then again with the point-line-coupled
     rows: RMSE within 1.5x of JAX's driver with JAX's trackers as they ship
-    on the CPU, line_accept > 0, exactly one LK launch a frame after the
-    first and no gate/Gram launch; the first run's line tracker held to a
+    on the CPU, line_accept > 0, no kernel launch (the point tracker's LK is
+    the gather form in plain torch); the first run's line tracker held to a
     CPU line tracker fed the same frames and point tracks.  Readings as
     phase 16, plus the trackers' ms a frame and the line tracker's host
     operators a frame."""
@@ -1926,9 +1941,7 @@ def phase_host_line_tracker(dev):
 
         events = examples.track_events(sim, wheel=True, images=True, lines=True)
         reads0 = lines.host_reads
-        capture = {}
-        with recording(capture, n_gram=1):
-            r = drive_track(system, events, feed=feed)
+        r = drive_track(system, events, feed=feed)
         rmse, _ = track_rmse(sim, system)
         n = len(line_ms)
         ms = {k: (float(np.percentile(v, 50)), float(np.percentile(v, 90)))
@@ -1938,14 +1951,12 @@ def phase_host_line_tracker(dev):
                      f"{ms['point'][1]:.3f} ms, line tracker {ms['line'][0]:.3f} / "
                      f"{ms['line'][1]:.3f} ms a frame (p50 / p90), the line tracker's "
                      f"{ops[0]} host operators in the 11th frame and "
-                     f"{(lines.host_reads - reads0) / n:.2f} reads a frame",
-                     launches={"lk_pyramid": n - 1, "msckf_gram_gate": 0})
+                     f"{(lines.host_reads - reads0) / n:.2f} reads a frame")
         if not (system.stats["line_accept"] > 0 and rmse < 1.5 * jax_rmse):
             raise AssertionError(f"{tag}: line_accept {system.stats['line_accept']} or RMSE "
                                  f"{rmse:.4f} m not within 1.5x JAX's {jax_rmse:.4f} m")
         out["plc" if plc else "lines"] = dict(r, rmse=rmse, tracked=n, point_ms=ms["point"],
-                                              line_ms=ms["line"], line_ops=ops[0],
-                                              lk=capture["lk"])
+                                              line_ms=ms["line"], line_ops=ops[0])
         if plc:
             continue
         # the card's line tracker against the CPU's on the same frames and tracks
@@ -2027,9 +2038,9 @@ def phase_kaist_replay(dev):
     seed=5), t_start 1 s, 12 s at 8 Hz) with that test's layered config
     (`write_fixture_config`), replayed with --wheel --lines on the card with
     both launch counts set to 0 and every synchronizing call counted: that
-    test's gates, ATE within 1.5x of JAX's run_kaist on the CPU, LK
-    launches equal frames - 1 and no gate/Gram launch, the native feature
-    store taken.  Returns readings with the last LK call's arguments."""
+    test's gates, ATE within 1.5x of JAX's run_kaist on the CPU, no kernel
+    launch (the tracker's LK is the gather form in plain torch), the native
+    feature store taken.  Returns readings."""
     import importlib.util
     import tempfile
     import warnings
@@ -2059,8 +2070,7 @@ def phase_kaist_replay(dev):
         torch.cuda.synchronize()
         lk_kernel.lk_pyramid.launches = 0
         gram_gate.launches = 0
-        capture = {}
-        with warnings.catch_warnings(record=True) as caught, recording(capture, n_gram=1):
+        with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
@@ -2078,7 +2088,7 @@ def phase_kaist_replay(dev):
     print(f"KAIST replay ({man['images']} images written in {gen_s:.1f} s): {summary}; "
           f"launches {launches}; per frame (p50 / p90): {split}; syncs per frame "
           f"{syncs / n:.2f}; stats {system.stats}")
-    want = {"lk_pyramid": n - 1, "msckf_gram_gate": 0}
+    want = {"lk_pyramid": 0, "msckf_gram_gate": 0}
     if launches != want or summary["feature_store"] != "native":
         raise AssertionError(f"KAIST replay: launches {launches} (want {want}) or feature "
                              f"store {summary['feature_store']} (want native)")
@@ -2092,8 +2102,358 @@ def phase_kaist_replay(dev):
           f"size and encoding) {decode_ms:.3f} ms a read (median of 5), equal to the image "
           f"written; the fixture's 640 x 480 filter-0 frames "
           f"{summary['frame_ms']['decode']['p50']:.3f} ms p50")
-    return dict(summary, launches=launches, syncs_per_frame=syncs / n, lk=capture["lk"],
+    return dict(summary, launches=launches, syncs_per_frame=syncs / n,
                 decode_1280x560_ms=decode_ms)
+
+
+def paint_tag(img, bitmap, cx, cy, s, theta=0.0, ss=4):
+    """Paint a tag bitmap (8 px a cell) into img centered at (cx, cy) at s px
+    a cell, rotated by theta, with ss x ss supersampled edges (the painter
+    of tests/test_aruco.py)."""
+    cell = 8
+    n = bitmap.shape[0] / cell
+    H, W = img.shape
+    off = (np.arange(ss) + 0.5) / ss - 0.5
+    acc = np.zeros((H, W))
+    cov = np.zeros((H, W))
+    ct, st = np.cos(theta), np.sin(theta)
+    ys, xs = np.meshgrid(np.arange(H, dtype=float), np.arange(W, dtype=float), indexing="ij")
+    for oy in off:
+        for ox in off:
+            X, Y = xs + ox - cx, ys + oy - cy
+            u, v = (ct * X + st * Y) / s, (-st * X + ct * Y) / s
+            inside = (np.abs(u) < n / 2) & (np.abs(v) < n / 2)
+            bi = np.clip(((v + n / 2) * cell).astype(int), 0, bitmap.shape[0] - 1)
+            bj = np.clip(((u + n / 2) * cell).astype(int), 0, bitmap.shape[1] - 1)
+            acc += np.where(inside, bitmap[bi, bj], 0.0)
+            cov += inside
+    w = cov / (ss * ss)
+    img[:] = (1 - w) * img + w * np.where(cov > 0, acc / np.maximum(cov, 1), 0)
+    return img
+
+
+def tag_frames():
+    """Three painted 640 x 480 frames: one tag axis-aligned, one rotated,
+    two at different scales; [(image, [(tag, cx, cy, s, theta)])]."""
+    from plviwo_tpu_torch.ops import aruco
+
+    codes = aruco.tag_family()
+    scenes = [[(3, 320.3, 240.7, 5.0, 0.0)], [(7, 200.0, 260.0, 6.0, 0.9)],
+              [(0, 160.0, 120.0, 4.6, 0.0), (12, 460.0, 340.0, 6.8, 0.3)]]
+    out = []
+    for seed, tags in enumerate(scenes):
+        rng = np.random.default_rng(seed)
+        img = np.clip(0.55 + 0.06 * rng.normal(size=(480, 640)), 0, 1)
+        for tag, cx, cy, s, theta in tags:
+            paint_tag(img, aruco.tag_bitmap(codes[tag]), cx, cy, s, theta)
+        out.append((img.astype(np.float32), tags))
+    return out
+
+
+def tag_run(dev):
+    """run_sim --tags --duration 8 --seed 2 on the card with both launch
+    counts set to 0, the ArUco tracker's ms a frame recorded.  Returns
+    (summary, launches, [ms a frame])."""
+    import contextlib
+    import io
+
+    import torch
+
+    from plviwo_tpu_torch import run_sim
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+    from plviwo_tpu_torch.update import aruco_tracker
+
+    feed, ms = aruco_tracker.ArucoTracker.feed, []
+
+    def timed_feed(self, img):
+        out = feed(self, img)
+        ms.append(self.last_ms)
+        return out
+
+    torch.cuda.synchronize()
+    lk_kernel.lk_pyramid.launches = 0
+    gram_gate.launches = 0
+    aruco_tracker.ArucoTracker.feed = timed_feed
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = run_sim.main(["--tags", "--duration", "8", "--seed", "2", "--device", str(dev)])
+    finally:
+        aruco_tracker.ArucoTracker.feed = feed
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0:
+        raise AssertionError(f"run_sim --tags: exit {rc}: {summary}")
+    return summary, {"lk_pyramid": lk_kernel.lk_pyramid.launches,
+                     "msckf_gram_gate": gram_gate.launches}, ms
+
+
+def phase_tags(dev):
+    """Phase 29, fiducial tags: (a) the detector (`ops/aruco.TagDetector`)
+    on three painted 640 x 480 frames, the card against the CPU (valid
+    masks, ids and bit counts equal, corners within 1e-3 px) and both
+    against the painted corners (< 1.8 px); the NCC volume on the card with
+    cuDNN's TF32 switched on globally, held to a float64 CPU correlation
+    within 1e-4 (TF32 would be ~1e-3 off: the bank pins FP32); (b)
+    tests/test_aruco.py::test_sim_ground_tags_detected_and_world_consistent
+    on the card: >= 8 corner hits, median reprojection < 1.5 px, max < 4 px;
+    (c) run_sim --tags --duration 8 --seed 2: ATE < 1.0 m (JAX's gate), set
+    beside JAX's TAGS_JAX_ATE, no kernel launch.  Readings: the NCC bank's
+    and the whole detector's ms a frame (CUDA events, 640 x 480), the
+    ArUco tracker's host ms a frame in the replay."""
+    import torch
+    import torch.nn.functional as F
+
+    from plviwo_tpu_torch.ops import aruco, lie
+    from plviwo_tpu_torch.ops import cam as cam_ops
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+    from plviwo_tpu_torch.update.aruco_tracker import ArucoTracker
+
+    card, cpu = aruco.TagDetector(device=dev), aruco.TagDetector(device="cpu")
+    err = 0.0
+    frames = tag_frames()
+    for i, (img, tags) in enumerate(frames):
+        got = {k: v.cpu().numpy() for k, v in card.detect(img).items()}
+        want = {k: v.numpy() for k, v in cpu.detect(img).items()}
+        ok = want["valid"]
+        if not (np.array_equal(got["valid"], ok) and np.array_equal(got["tag_id"][ok],
+                                                                     want["tag_id"][ok])
+                and np.array_equal(got["n_match"][ok], want["n_match"][ok])):
+            raise AssertionError(f"tags: frame {i}: the card's detections differ from the CPU's")
+        if sorted(int(t) for t in got["tag_id"][ok]) != sorted(t[0] for t in tags):
+            raise AssertionError(f"tags: frame {i}: ids {got['tag_id'][ok]}, painted {tags}")
+        err = max(err, float(np.abs(got["corners"][ok] - want["corners"][ok]).max()))
+        for tag, cx, cy, s, theta in tags:
+            j = int(np.nonzero(ok & (got["tag_id"] == tag))[0][0])
+            c = np.array([[-3.0, -3.0], [3.0, -3.0], [3.0, 3.0], [-3.0, 3.0]]) * s
+            R = np.array([[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]])
+            gt_err = np.linalg.norm(got["corners"][j] - (np.array([cx, cy]) + c @ R.T), axis=-1)
+            if gt_err.max() > 1.8:
+                raise AssertionError(f"tags: frame {i} tag {tag}: corners {gt_err.max():.3f} px "
+                                     "from the painted ones (limit 1.8)")
+    if err > 1e-3:
+        raise AssertionError(f"tags: corners {err:.3g} px from the CPU's (limit 1e-3)")
+    x = torch.as_tensor(frames[2][0], device=dev)[None]
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ncc = aruco.ncc_stack(x, card.bank_T)
+        ncc_ms = cuda_ms(lambda: aruco.ncc_stack(x, card.bank_T), n_iter=10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    det_ms = cuda_ms(lambda: card.detect_batch(x), n_iter=10)
+    ref = []  # the same correlations in float64 (no TF32 there), one call per scale
+    xd = x.double()[:, None]
+    for T in card.bank_T:
+        K = T.shape[-1]
+        num = F.conv2d(xd, T.double()[:, None], padding=K // 2)
+        w = torch.full((1, 1, K, K), 1.0 / (K * K), dtype=torch.float64, device=dev)
+        mean = F.conv2d(xd, w, padding=K // 2)
+        mean2 = F.conv2d(xd * xd, w, padding=K // 2)
+        ref.append(num / (torch.sqrt(torch.clamp(mean2 - mean * mean, min=1e-8)) * K))
+    ncc_err = float((ncc[0].double() - torch.stack(ref, 1)[0]).abs().max())
+    print(f"tags: the detector on 3 painted 640 x 480 frames, card against CPU: detections "
+          f"equal, corners within {err:.3g} px; NCC bank (3 scales x 12 angles, K = "
+          f"{[int(T.shape[-1]) for T in card.bank_T]}) with TF32 on globally: {ncc_err:.3g} from "
+          f"a float64 correlation; NCC {ncc_ms:.3f} ms, whole detector {det_ms:.3f} ms a "
+          f"640 x 480 frame (CUDA events)")
+    if not ncc_err < 1e-4:
+        raise AssertionError(f"tags: NCC {ncc_err:.3g} from float64 (limit 1e-4): not FP32")
+
+    # (b) the ground tags seen from above, world-consistent
+    cfg = SimConfig(duration=8.0, seed=3, n_tags=5, tag_size=0.5, width=320, height=240,
+                    intrinsics=(300.0, 300.0, 160.0, 120.0, 0.0, 0.0, 0.0, 0.0),
+                    cam_ext_q=(1.0, 0.0, 0.0, 0.0), cam_ext_p=(0.0, 0.0, 0.0))
+    sim = Simulator(cfg)
+    tracker = ArucoTracker(max_tag_id=16, device=dev)
+    corners_w = sim.tag_corners_world()
+    k = torch.as_tensor(cfg.intrinsics, dtype=torch.float64)
+    R_ItoC = lie.quat_2_rot(torch.as_tensor(cfg.cam_ext_q, dtype=torch.float64)).numpy()
+    errs = []
+    for t in sim.cam_times()[::3][:8]:
+        ids, uvs = tracker.feed(sim.render_frame(t, with_lines=False))
+        kin = sim.gt_kin(t)
+        for fid, uv in zip(ids, uvs):
+            rel = int(fid - tracker.id_base)
+            p_C = R_ItoC @ (kin["R_GtoI"] @ (corners_w[rel % 16, rel // 16] - kin["p_IinG"]))
+            uv_gt = cam_ops.project(torch.as_tensor(p_C[None]), k, cam_ops.RADTAN).numpy()[0]
+            errs.append(float(np.linalg.norm(uv - uv_gt)))
+    errs = np.asarray(errs)
+    print(f"tags: ground tags (nadir, 320 x 240): {len(errs)} corner hits, reprojection median "
+          f"{np.median(errs) if len(errs) else float('nan'):.3f} px, max "
+          f"{errs.max() if len(errs) else float('nan'):.3f} px")
+    if not (len(errs) >= 8 and np.median(errs) < 1.5 and errs.max() < 4.0):
+        raise AssertionError("tags: missed tests/test_aruco.py's ground-tag gates (>= 8 hits, "
+                             "median < 1.5 px, max < 4 px)")
+
+    # (c) the replay
+    summary, launches, ms = tag_run(dev)
+    ate = summary["ate_rmse_m"]
+    print(f"tags: run_sim --tags --duration 8 --seed 2 on the card: {summary}; launches "
+          f"{launches}; ATE {ate} m ({ate / TAGS_JAX_ATE:.3f}x JAX's {TAGS_JAX_ATE:.4f}); ArUco "
+          f"tracker {np.percentile(ms, 50):.3f} / {np.percentile(ms, 90):.3f} ms a frame "
+          f"(p50 / p90, host clock, its read included)")
+    if launches != {"lk_pyramid": 0, "msckf_gram_gate": 0}:
+        raise AssertionError(f"tags: launches {launches}, want none")
+    if not (ate is not None and ate < 1.0):
+        raise AssertionError(f"tags: ATE {ate} m (JAX's gate: < 1.0 m)")
+    return dict(ate=ate, ncc_ms=ncc_ms, detect_ms=det_ms, ncc_err=ncc_err,
+                aruco_p50_ms=float(np.percentile(ms, 50)), hits=len(errs))
+
+
+def phase_desc_tracker(dev):
+    """Phase 30, the descriptor tracker: tests/test_descriptor.py::
+    test_desc_tracker_e2e's scenario (8 s, seed 2, 45 landmarks a frame;
+    `DescTracker` with 80 slots) into `feed_camera` on the card, with both
+    launch counts set to 0: JAX's gates (cam_accept > 10, RMSE < 1.0 m),
+    the RMSE beside JAX's DESC_JAX_RMSE, no kernel launch.  Readings: the
+    tracker's host ms a frame (p50 / p90, its read included) and its device
+    reads a frame."""
+    import torch
+
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    ms = []
+    torch.cuda.synchronize()
+    lk_kernel.lk_pyramid.launches = 0
+    gram_gate.launches = 0
+    rmse, stats, system, tracker = examples.desc_tracker_vio(
+        device=dev, frame_hook=lambda tr: ms.append(tr.last_ms))
+    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches, "msckf_gram_gate": gram_gate.launches}
+    n = len(ms)
+    print(f"descriptor tracker (N=80) on the card: stats {stats}; RMSE {rmse:.4f} m "
+          f"({rmse / DESC_JAX_RMSE:.3f}x JAX's {DESC_JAX_RMSE:.4f}); {n} frames, tracker "
+          f"{np.percentile(ms, 50):.3f} / {np.percentile(ms, 90):.3f} ms a frame (p50 / p90), "
+          f"{tracker.host_reads / n:.2f} reads a frame; launches {launches}")
+    if launches != {"lk_pyramid": 0, "msckf_gram_gate": 0}:
+        raise AssertionError(f"descriptor tracker: launches {launches}, want none")
+    if not (stats["cam_accept"] > 10 and rmse < 1.0):
+        raise AssertionError("descriptor tracker: missed tests/test_descriptor.py's gates "
+                             "(cam_accept > 10, RMSE < 1.0 m)")
+    return dict(rmse=rmse, tracker_p50_ms=float(np.percentile(ms, 50)),
+                reads_per_frame=tracker.host_reads / n)
+
+
+def phase_record_viz_eval(dev):
+    """Phase 31, the recorder, viz, the eval CLI and checkpoints on the card:
+    (a) run_sim --wheel --lines --duration 4 --record --viz-dir and run_sim
+    --images --duration 2 --record --viz-dir, then `eval ate`, `rpe` and
+    `nees` over the first's files (its recorded ground truth as the
+    reference): est/std/gt rows one a frame, finite NEES, MSCKF points and
+    lines in the PLY dumps, one overlay a frame of the images-in run; (b) a
+    checkpoint halfway through run_sim --wheel's stream, resumed on the card:
+    the trajectory and stats equal to the unbroken run's, bit for bit; (c)
+    the syncs a frame of that stream with the recorder and viz off and on
+    (sync debug mode)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from plviwo_tpu_torch import examples, run_sim
+    from plviwo_tpu_torch.config.options import EstimatorOptions
+    from plviwo_tpu_torch.core.system import VioSystem
+    from plviwo_tpu_torch.eval.__main__ import main as eval_main
+    from plviwo_tpu_torch.eval.loader import save_tum
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+    from plviwo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from plviwo_tpu_torch.utils.recorder import StateRecorder
+    from plviwo_tpu_torch.utils.viz import VizRecorder
+
+    def run(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        if rc != 0:
+            raise AssertionError(f"{argv[:2]}: exit {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for tag, argv in (("tracks", ["--wheel", "--lines", "--duration", "4"]),
+                          ("images", ["--images", "--duration", "2"])):
+            rec, vd = os.path.join(d, tag), os.path.join(d, tag + "_viz")
+            summary = run(run_sim.main, argv + ["--record", rec, "--viz-dir", vd, "--device",
+                                                str(dev)])
+            n = summary["frames"]
+            rows = {k: np.loadtxt(os.path.join(rec, f"state_{k}.txt")) for k in ("est", "std",
+                                                                                   "gt")}
+            viz = json.load(open(os.path.join(vd, "viz_summary.json")))
+            if any(len(v) != n for v in rows.values()):
+                raise AssertionError(f"record/viz ({tag}): {n} frames, rows "
+                                     f"{ {k: len(v) for k, v in rows.items()} }")
+            out[tag] = dict(frames=n, viz=viz)
+            if tag == "images":
+                if viz["overlays"] != n:
+                    raise AssertionError(f"record/viz: {viz['overlays']} overlays for {n} frames")
+                continue
+            gt = rows["gt"]
+            gt_path = os.path.join(d, "gt.txt")
+            save_tum(gt_path, gt[:, 0], gt[:, 5:8], gt[:, 1:5])
+            traj = os.path.join(rec, "trajectory.txt")
+            ate = run(eval_main, ["ate", traj, gt_path, "--align", "none"])
+            rpe = run(eval_main, ["rpe", traj, gt_path, "--segments", "2,4"])
+            nees = run(eval_main, ["nees", rec])
+            out[tag].update(ate=ate["pos"]["rmse"], rpe_4m=rpe["4.0"]["pos"]["mean"],
+                            pos_nees=nees["pos_nees"]["mean"], ori_nees=nees["ori_nees"]["mean"])
+            print(f"record/viz: run_sim --wheel --lines --duration 4 on the card: {n} frames, "
+                  f"viz {viz}; eval ate {ate['pos']['rmse']:.4f} m (run_sim's "
+                  f"{summary['ate_rmse_m']}), rpe over 4 m {rpe['4.0']['pos']['mean']:.4f} m "
+                  f"(n {rpe['4.0']['pos']['n']}), NEES position {nees['pos_nees']['mean']:.3f}, "
+                  f"orientation {nees['ori_nees']['mean']:.3f}")
+            if not (viz.get("msckf_points", 0) > 0 and viz.get("lines", 0) > 0
+                    and abs(ate["pos"]["rmse"] - summary["ate_rmse_m"]) < 1e-3
+                    and np.isfinite(nees["pos_nees"]["mean"])):
+                raise AssertionError(f"record/viz: viz {viz}, ATE {ate['pos']['rmse']} against "
+                                     f"run_sim's {summary['ate_rmse_m']}, NEES {nees}")
+        print(f"record/viz: run_sim --images --duration 2 on the card: {out['images']}")
+
+        # (b) checkpoint halfway, resumed on the card
+        sim = Simulator(SimConfig(duration=8.0, seed=3, sigma_pix=0.5, n_pts=45))
+        o = run_sim_options(EstimatorOptions(), wheel=True)
+        events = examples.track_events(sim, wheel=True)
+
+        def make():
+            s = VioSystem(o, device=dev)
+            examples.live_calibrate(s, sim, float(sim.imu_t[0]))
+            return s
+
+        a = make()
+        half = len(events) // 2
+        for kind, args in events[:half]:
+            examples.feed(a, kind, args)
+        path = os.path.join(d, "ck.pkl")
+        t0 = time.perf_counter()
+        save_checkpoint(path, a)
+        b = load_checkpoint(path, device=dev)
+        ck_ms = 1e3 * (time.perf_counter() - t0)
+        for kind, args in events[half:]:
+            examples.feed(a, kind, args)
+            examples.feed(b, kind, args)
+        same = (len(a.traj) == len(b.traj) and a.stats == b.stats
+                and all(ta == tb and np.array_equal(pa, pb) and np.array_equal(qa, qb)
+                        for (ta, qa, pa), (tb, qb, pb) in zip(a.traj, b.traj)))
+        print(f"checkpoint: saved and loaded at {half} of {len(events)} events in {ck_ms:.1f} ms "
+              f"({os.path.getsize(path) / 1e6:.2f} MB); the resumed run's {len(b.traj)} poses "
+              f"and stats {'equal' if same else 'DIFFER from'} the unbroken run's")
+        if not same:
+            raise AssertionError("checkpoint: the resumed run differs from the unbroken run")
+
+        # (c) syncs a frame, recorder and viz off and on
+        syncs = {}
+        for mode in ("off", "on"):
+            s = make()
+            rec = StateRecorder(os.path.join(d, "sync_" + mode)) if mode == "on" else None
+            if mode == "on":
+                s.viz = VizRecorder(os.path.join(d, "sync_viz"))
+            r = drive_track(s, events, per_frame=(lambda s_: rec.record(s_)) if rec else None)
+            syncs[mode] = r["syncs_per_frame"]
+        print(f"syncs a frame on run_sim --wheel's 8 s stream: recorder and viz off "
+              f"{syncs['off']:.2f}, on {syncs['on']:.2f}")
+        out.update(checkpoint_ms=ck_ms, syncs=syncs)
+    return out
 
 
 def main() -> int:
@@ -2183,13 +2543,16 @@ def main() -> int:
     auto_init = phase_auto_init(dev)
     zupt = phase_zupt(dev)
     trackers = phase_host_tracker(dev)
-    lk_trackers = {name: phase_lk(f"host tracker {name} last frame", trackers[name]["lk"])
-                   for name in ("mono", "kaist")}
     line_trackers = phase_host_line_tracker(dev)
     kaist_replay = phase_kaist_replay(dev)
-    lk_trackers["line_tracker"] = phase_lk("host line tracker last frame",
-                                           line_trackers["lines"]["lk"])
-    lk_trackers["kaist_replay"] = phase_lk("KAIST replay last frame", kaist_replay["lk"])
+    tags = phase_tags(dev)
+    desc = phase_desc_tracker(dev)
+    record = phase_record_viz_eval(dev)
+    print(f"tags, descriptors, record/viz/eval/checkpoint on {card}: tags ATE {tags['ate']} m, "
+          f"NCC {tags['ncc_ms']:.3f} ms and detector {tags['detect_ms']:.3f} ms a 640 x 480 "
+          f"frame; descriptor tracker {desc['tracker_p50_ms']:.3f} ms a frame (p50), RMSE "
+          f"{desc['rmse']:.4f} m; syncs a frame with the recorder and viz off / on "
+          f"{record['syncs']['off']:.2f} / {record['syncs']['on']:.2f}")
     track_launches = {k: sum(r["launches"][k] for r in track.values())
                       for k in ("lk_pyramid", "msckf_gram_gate")}
     tracker_launches = sum(r["launches"]["lk_pyramid"] for r in trackers.values())
@@ -2254,8 +2617,7 @@ def main() -> int:
          "replaces": "plviwo_tpu/ops/lk_kernel.py:141",
          "launches": img_launches["lk_pyramid"],
          "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"], lk_live["max_abs_err"],
-                            new_paths["stereo_frame_lk_lr"]["max_abs_err"],
-                            *(g["max_abs_err"] for g in lk_trackers.values())),
+                            new_paths["stereo_frame_lk_lr"]["max_abs_err"]),
          "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": None,
          "launches_by_path": {"images_in": img_launches["lk_pyramid"],
@@ -2271,7 +2633,6 @@ def main() -> int:
                                                        for r in line_trackers.values()),
                               "kaist_replay": kaist_replay["launches"]["lk_pyramid"]},
          "live_driver_b1": times(lk_live),
-         "host_tracker_b1": {f"{name}_n{g['n']}": times(g) for name, g in lk_trackers.items()},
          "stereo_frame_lr": times(new_paths["stereo_frame_lk_lr"]),
          "captured_frame": times(lk_frame)}
     ]}))

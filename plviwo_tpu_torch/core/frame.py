@@ -1,7 +1,9 @@
 """Images-in fused frame (port of plviwo_tpu/core/frame.py), batch-first.
 
 One frame for B sequences: hist-equalize -> pyramid -> pyramidal LK (the
-hand kernel `csrc/lk_pyramid.cu` on the card) -> undistort -> RANSAC gate
+hand kernel `csrc/lk_pyramid.cu` on the card; with `lk_conv=False` the
+gather form `ops/klt.pyramidal_lk` in plain torch, as JAX's frame runs its
+gather LK under `cam.fused_lk_conv=False`) -> undistort -> RANSAC gate
 -> per-slot observation histories -> grid re-detect into free slots ->
 run-length line detection at half resolution -> collinear NMS -> point
 attachment -> shared-point line matching -> line histories -> track
@@ -346,7 +348,7 @@ def _line_histories(ts: TrackState, ls: _LineSlots, lseg_n, uv_all, valid_all, t
 def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
                 iters: int = 6, grid_x: int = 16, grid_y: int = 12,
                 min_px_dist: int = 10, min_track: int = 4, cam_model: int = 0,
-                lines: bool = True, img_r=None, cam_k_r=None):
+                lines: bool = True, img_r=None, cam_k_r=None, lk_conv: bool = True):
     """One tracked camera frame of B sequences: points and, with `lines`,
     lines.
 
@@ -366,7 +368,8 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
     position), kept where |v_r - v_l| < MAX_Y_DIFF, and written at the
     left append's cursors; fresh detections carry no right observation.
     point_harvest then has three more entries, (obs_uv_r, obs_uvn_r,
-    obs_mask & right valid), as the JAX package's."""
+    obs_mask & right valid), as the JAX package's.  lk_conv: both LK passes
+    through the LK kernel (conv form); else through the gather form."""
     N = ts.uv.shape[1]
     O = ts.hist_uv.shape[2]
     B, Lm = ts.lseg.shape[:2]
@@ -377,8 +380,9 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
 
     # ---- temporal LK + RANSAC ----
     has_prev = ts.has_prev[:, None]
-    uv_next, ok = lk_kernel.pyramidal_lk((ts.pyr0, ts.pyr1, ts.pyr2), pyr, ts.uv,
-                                         ts.valid & has_prev, LEVELS, half, iters)
+    lk = lk_kernel.pyramidal_lk if lk_conv else klt_ops.pyramidal_lk
+    uv_next, ok = lk((ts.pyr0, ts.pyr1, ts.pyr2), pyr, ts.uv, ts.valid & has_prev, LEVELS,
+                     half, iters)
     zn = cam_ops.undistort(torch.cat([ts.uv, uv_next], dim=1).to(F64), kb, cam_model)
     zn_prev, zn_next = zn[:, :N], zn[:, N:]
     enough = torch.sum(ok, dim=-1, keepdim=True) >= 12
@@ -400,7 +404,7 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
     if stereo:
         pyr_r = image_ops.build_pyramid(image_ops.hist_equalize_quantile(img_r.to(F32)),
                                         LEVELS)
-        uv_r, ok_r = lk_kernel.pyramidal_lk(pyr, pyr_r, uv_cur, alive, LEVELS, half, iters)
+        uv_r, ok_r = lk(pyr, pyr_r, uv_cur, alive, LEVELS, half, iters)
         ok_r = ok_r & (torch.abs(uv_r[..., 1] - uv_cur[..., 1]) < MAX_Y_DIFF)
         uvn_r = cam_ops.undistort(uv_r.to(F64), cam_k_r[:, None, :], cam_model)
         hist_r = _append_r(ts.hist_uv_r, ts.hist_uvn_r, ts.hist_rvalid, ts.n_obs, alive, uv_r,
@@ -497,7 +501,7 @@ def fused_frame(state: FilterState, ts: TrackState, img,
                 use_gps: bool = False, gps_t=None, gps_p=None, gps_valid=None,
                 sigma_gps: float = 3.0, gps_chi2_mult: float = 1.0,
                 use_dynamic: bool = False, do_clone=None, use_stereo: bool = False,
-                img_r=None):
+                img_r=None, lk_conv: bool = True):
     """One images-in PL-VIWO frame for B sequences: pixels -> tracking
     (points and lines) -> filter, with ONE joint EKF update of the point,
     line, wheel and GPS rows.
@@ -515,7 +519,8 @@ def fused_frame(state: FilterState, ts: TrackState, img,
     at this frame (the host's rate policy); the point rows update poses
     interpolated between clones, and the wheel rows, clone to clone, count
     only where do_clone.  use_stereo: img_r (B,H,W) the right image, camera
-    1 of the state (camera 0 where it has one camera)."""
+    1 of the state (camera 0 where it has one camera).  lk_conv=False
+    tracks with the gather LK instead of the LK kernel (`track_frame`)."""
     # --- filter time update ---
     state = propagator.propagate(state, imu_t, imu_w, imu_a, t_new, gravity, sigmas)
     state_m = _auto_marginalize(state, t_new, window_size)
@@ -532,7 +537,7 @@ def fused_frame(state: FilterState, ts: TrackState, img,
         ts, img, state.cam_k[:, 0], t_new, slot1, half=half, iters=iters, grid_x=grid_x,
         grid_y=grid_y, min_px_dist=min_px_dist, min_track=min_track, cam_model=model,
         lines=use_lines, img_r=img_r if use_stereo else None,
-        cam_k_r=state.cam_k[:, 1 % n_cams])
+        cam_k_r=state.cam_k[:, 1 % n_cams], lk_conv=lk_conv)
     p_uv, p_uvn, p_slot, p_mask, p_t = point_harvest[:5]
     if not use_dynamic:
         # dynamic: observations are resolved by time in the row builder

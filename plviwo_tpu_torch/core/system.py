@@ -71,11 +71,16 @@ mono MSCKF candidates are exported from it in one call, as the JAX driver
 does (SLAM-owned tracks then take candidate places and are masked out).
 Stereo bypasses it.  `feature_store` and the final report name the store
 the candidates came from.
+
+`viz` (a `utils/viz.VizRecorder`, None by default) takes, at the JAX
+driver's four places, the images-in frame's tracking overlay, the SLAM
+points at each recorded pose, the accepted lines' display endpoints and the
+accepted MSCKF points; each hook reads the device (once) only when `viz`
+is set.  `print_status` logs through `utils/logging`.
 """
 
 from __future__ import annotations
 
-import logging
 import time
 from collections import deque
 
@@ -95,7 +100,9 @@ from ..update import lines as line_up
 from ..update import wheel as wheel_up
 from ..update.feature_db import FeatureDatabase, LineDatabase
 from ..update.zupt import ZuptUpdater
+from ..utils import logging as vlog
 from ..utils.timing import TimeChecker
+from ..utils.viz import line_display_endpoints
 from . import dynamic_cloning as dynclone
 from . import ekf, propagator
 from .frame import fused_frame, make_track_state
@@ -113,16 +120,11 @@ GPS_PAD = 4  # GPS fixes per frame
 _METRICS = ("accepted", "harvested", "lines_accepted", "line_harvested", "wheel_accepted",
             "gps_accepted")
 
-log = logging.getLogger(__name__)
-
 
 class VioSystem:
     def __init__(self, opts: EstimatorOptions | None = None, device=CUDA):
         self.opts = opts or EstimatorOptions()
         op = self.opts
-        if not op.cam.fused_lk_conv:
-            raise NotImplementedError("the gather LK (cam.fused_lk_conv=False) is a TPU "
-                                      "variant the port does not carry (ROADMAP A, Not ported)")
         self.device = checked_device(device)
         self.layout = StateLayout(
             n_clones=op.max_clones,
@@ -148,6 +150,9 @@ class VioSystem:
         self.wheel_buf = wheel_up.WheelBuffer()
         self.tc = TimeChecker()
         self.frame_timing = {}  # ms of the latest frame: device step, host work, GPS
+        # optional utils.viz.VizRecorder: overlays and 3-D dumps; the device is
+        # read for it only when it is set
+        self.viz = None
         self.wheel_type = wheel_up.TYPE_CODES.get(op.wheel.type, wheel_up.W3D_ANG)
         self._last_frame_t = None
         # dynamic cloning: the next clone time, the rate chosen and the IMU's
@@ -493,7 +498,7 @@ class VioSystem:
                 use_dynamic=use_dyn,
                 do_clone=torch.tensor([do_clone], device=self.device) if use_dyn else None,
                 use_stereo=img_r is not None and self.layout.n_cams >= 2,
-                img_r=None if img_r is None else img_r[None])
+                img_r=None if img_r is None else img_r[None], lk_conv=op.cam.fused_lk_conv)
             # ONE host transfer: the frame's metrics, time, pose and bg
             st = self.state
             host = torch.cat([m[k].to(F64) for k in _METRICS]
@@ -517,6 +522,8 @@ class VioSystem:
             q, p = host[len(_METRICS) + 1:len(_METRICS) + 5], host[len(_METRICS) + 5:-3]
             self._bg = host[-3:]
             self._record_pose(self._time, q, p)
+            if self.viz is not None:
+                self._viz_overlay(t, img)
             ms_gps = 0.0
             if self.gps is not None:
                 t_gps = time.perf_counter()
@@ -660,6 +667,23 @@ class VioSystem:
 
     def _record_pose(self, t, q, p):
         self.traj.append((float(t), np.array(q), np.array(p)))
+        if self.viz is not None and self._slam_valid.any():
+            xyz = self._host(cam_helper.rep_to_xyz(self.state.slam_p[0], self.feat_rep))
+            self.viz.add_slam_points(float(t), xyz[self._slam_valid])
+
+    def _viz_overlay(self, t, img):
+        """The images-in frame's tracking overlay: the image, the tracked
+        slots and the tracked line segments in one read."""
+        ts = self.track_state
+        N, L = ts.uv.shape[1], ts.lseg.shape[1]
+        host = self._host(torch.cat([img.reshape(-1).to(F64), ts.uv[0].reshape(-1).to(F64),
+                                     ts.valid[0].to(F64), ts.lseg[0].reshape(-1).to(F64),
+                                     ts.lvalid[0].to(F64)]))
+        H, W = img.shape
+        gray, host = host[:H * W].reshape(H, W).astype(np.float32), host[H * W:]
+        uv, ok = host[:2 * N].reshape(N, 2), host[2 * N:3 * N] > 0.5
+        segs, lok = host[3 * N:3 * N + 4 * L].reshape(L, 4), host[3 * N + 4 * L:] > 0.5
+        self.viz.add_overlay(t, gray, uv[ok], None, segs[lok] if lok.any() else None)
 
     # ------------------------------------------------------------------
     # the per-track path
@@ -1186,6 +1210,9 @@ class VioSystem:
         n_ok = int(self._host(feat_ok.sum()))
         self.stats["cam_accept"] += n_ok
         self.stats["cam_reject"] += n_cands - n_ok
+        if self.viz is not None and n_ok:
+            host = self._host(torch.cat([p_f[0], feat_ok[0, :, None].to(F64)], dim=-1))
+            self.viz.add_points(t_frame, host[host[:, 3] > 0.5, :3])
         if n_ok == 0:
             self._db_remove(used_fids)
             return
@@ -1462,6 +1489,8 @@ class VioSystem:
         n_ok = int(self._host(line_ok.sum()))
         self.stats["line_accept"] += n_ok
         self.stats["line_reject"] += len(cands) - n_ok
+        if self.viz is not None and n_ok:
+            self._viz_lines(t_frame, line_ok, n_G, v_G, seg_uvn, obs_slot, obs_valid)
         if n_ok:
             M = L * Hn.shape[2]
             H_all, r_all = Hn.reshape(1, M, lo.dim), rn.reshape(1, M)
@@ -1474,6 +1503,30 @@ class VioSystem:
                 self.state = ekf.update(self.state, Hc, rc, torch.full_like(rc, sigma2), cmask)
         self.ldb.remove(used)
 
+    def _viz_lines(self, t_frame, line_ok, n_G, v_G, seg_uvn, obs_slot, obs_valid):
+        """The accepted lines' display endpoints, from each line's newest
+        observation (the device read in one transfer)."""
+        st = self.state
+        L, C = line_ok.shape[1], st.clone_q.shape[1]
+        host = self._host(torch.cat([line_ok[0].to(F64), n_G[0].reshape(-1), v_G[0].reshape(-1),
+                                     st.clone_q[0].reshape(-1), st.clone_p[0].reshape(-1),
+                                     st.cam_q[0, 0], st.cam_p[0, 0]]))
+        ok, host = host[:L] > 0.5, host[L:]
+        nG, vG = host[:3 * L].reshape(L, 3), host[3 * L:6 * L].reshape(L, 3)
+        host = host[6 * L:]
+        cq, cp = host[:4 * C].reshape(C, 4), host[4 * C:7 * C].reshape(C, 3)
+        cam_q, cam_p = host[7 * C:7 * C + 4], host[7 * C + 4:]
+        eps = []
+        for i in np.nonzero(ok)[0]:
+            js = np.nonzero(obs_valid[i])[0]
+            if not len(js):
+                continue
+            j = int(js[-1])
+            k = obs_slot[i, j]
+            eps.append(line_display_endpoints(nG[i], vG[i], seg_uvn[i, j], cq[k], cp[k], cam_q,
+                                              cam_p))
+        self.viz.add_lines(t_frame, np.asarray(eps))
+
     # ------------------------------------------------------------------
     # telemetry (reference: SystemManager::print_status/print_final_report,
     # SystemManager.cpp:314-522)
@@ -1483,8 +1536,8 @@ class VioSystem:
         p = st.p[0].cpu().numpy()
         n_clones = int(st.clone_valid.sum())
         n_slam = int(st.slam_valid.sum())
-        log.info(f"t={self._time:.2f} p=[{p[0]:.2f} {p[1]:.2f} {p[2]:.2f}] "
-                 f"clones={n_clones} slam={n_slam} stats={self.stats}")
+        vlog.info(f"t={self._time:.2f} p=[{p[0]:.2f} {p[1]:.2f} {p[2]:.2f}] "
+                  f"clones={n_clones} slam={n_slam} stats={self.stats}")
 
     def final_report(self) -> dict:
         """End-of-run summary (distance traveled, per-sensor accept rates)."""

@@ -4,8 +4,9 @@ its synthetic fixture need.
 `read_gray` decodes non-interlaced 8-bit grayscale (color type 0) and RGB
 (color type 2) images with any of the five row filters; RGB converts to
 one channel as Pillow's `convert("L")` does (ITU-R 601-2 luma in 16-bit
-fixed point, L = (19595 R + 38470 G + 7471 B + 2^15) >> 16).  `write_gray`
-encodes an 8-bit grayscale image with filter 0 (none) on every row.  Any
+fixed point, L = (19595 R + 38470 G + 7471 B + 2^15) >> 16); `read_rgb`
+returns an RGB image's three channels.  `write_gray` and `write_rgb` encode
+8-bit grayscale and RGB images with filter 0 (none) on every row.  Any
 other format raises ValueError naming it.
 """
 
@@ -66,8 +67,8 @@ def _unfilter(raw: np.ndarray, H: int, W: int, bpp: int, path) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8)
 
 
-def read_gray(path) -> np.ndarray:
-    """An 8-bit grayscale or RGB PNG as an (H, W) uint8 luma image."""
+def _decode(path) -> np.ndarray:
+    """An 8-bit grayscale or RGB PNG's pixels, (H, W, channels) uint8."""
     with open(path, "rb") as f:
         data = f.read()
     header, idat = None, []
@@ -91,12 +92,39 @@ def read_gray(path) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
     if raw.size != H * (1 + W * bpp):
         raise ValueError(f"{path}: {raw.size} image bytes for {W} x {H} {what}")
-    px = _unfilter(raw.reshape(H, 1 + W * bpp), H, W, bpp, path)
-    if bpp == 1:
+    return _unfilter(raw.reshape(H, 1 + W * bpp), H, W, bpp, path)
+
+
+def read_gray(path) -> np.ndarray:
+    """An 8-bit grayscale or RGB PNG as an (H, W) uint8 luma image."""
+    px = _decode(path)
+    if px.shape[-1] == 1:
         return px[..., 0]
     rgb = px.astype(np.uint32)
     return ((19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2] + 0x8000)
             >> 16).astype(np.uint8)
+
+
+def read_rgb(path) -> np.ndarray:
+    """An 8-bit RGB PNG as an (H, W, 3) uint8 image."""
+    px = _decode(path)
+    if px.shape[-1] != 3:
+        raise ValueError(f"{path}: a grayscale PNG; read_rgb reads RGB")
+    return px
+
+
+def _write(path, img, color: int) -> None:
+    H, W = img.shape[:2]
+    raw = np.concatenate([np.zeros((H, 1), dtype=np.uint8), img.reshape(H, -1)],
+                         axis=1).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body))
+
+    with open(path, "wb") as f:
+        f.write(SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
 def write_gray(path, img) -> None:
@@ -105,13 +133,13 @@ def write_gray(path, img) -> None:
     if img.dtype != np.uint8 or img.ndim != 2:
         raise ValueError(f"write_gray: needs an (H, W) uint8 image, got {img.dtype} "
                          f"{img.shape}")
-    H, W = img.shape
-    raw = np.concatenate([np.zeros((H, 1), dtype=np.uint8), img], axis=1).tobytes()
+    _write(path, img, 0)
 
-    def chunk(kind, body):
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(
-            ">I", zlib.crc32(kind + body))
 
-    with open(path, "wb") as f:
-        f.write(SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+def write_rgb(path, img) -> None:
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG, filter 0."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+        raise ValueError(f"write_rgb: needs an (H, W, 3) uint8 image, got {img.dtype} "
+                         f"{img.shape}")
+    _write(path, img, 2)

@@ -1,8 +1,8 @@
 """Trajectory error metrics (port of plviwo_tpu/eval/metrics.py; reference:
 ov_eval ResultTrajectory / Statistics, calc/ResultTrajectory.h:82-149):
-ATE and ATE-2D; the JAX module's RPE and NEES have no caller in the port
-and are not copied.  Numpy on the host; rotations go through the port's
-`ops.lie` in float64 on the CPU."""
+ATE, ATE-2D, RPE over segment lengths, NEES from est/std/gt triplets.
+Numpy on the host; rotations go through the port's `ops.lie` in float64 on
+the CPU."""
 
 from __future__ import annotations
 
@@ -92,4 +92,59 @@ def ate(t_est, p_est, q_est, t_gt, p_gt, q_gt, method="posyaw", tol=0.02):
         "ori_deg": Stats.from_values(np.degrees(oerr)).as_dict() if len(oerr) else None,
         "align": {"method": method, "scale": s, "yaw": float(np.arctan2(R[1, 0], R[0, 0]))},
         "n": int(len(pairs)),
+    }
+
+
+def rpe(t_est, p_est, q_est, t_gt, p_gt, q_gt, segment_lengths=(8, 16, 24, 32, 48),
+        tol=0.02):
+    """Relative pose error over distance segments (reference: calculate_rpe)."""
+    pairs = associate(t_est, t_gt, tol)
+    if len(pairs) < 3:
+        return {"error": "too few associations"}
+    pe = np.asarray(p_est)[pairs[:, 0]]
+    pg = np.asarray(p_gt)[pairs[:, 1]]
+    qe = np.asarray(q_est)[pairs[:, 0]] if q_est is not None else None
+    qg = np.asarray(q_gt)[pairs[:, 1]] if q_gt is not None else None
+    # cumulative gt distance
+    dist = np.concatenate([[0.0], np.cumsum(np.linalg.norm(np.diff(pg, axis=0), axis=1))])
+    out = {}
+    for L in segment_lengths:
+        errs_p, errs_o = [], []
+        for i in range(len(pg)):
+            j = int(np.searchsorted(dist, dist[i] + L))
+            if j >= len(pg):
+                break
+            # relative transforms
+            if qe is None:
+                continue
+            R0e, R1e = _quat_to_rot_np(qe[i]), _quat_to_rot_np(qe[j])
+            R0g, R1g = _quat_to_rot_np(qg[i]), _quat_to_rot_np(qg[j])
+            dpe = R0e @ (pe[j] - pe[i])
+            dpg = R0g @ (pg[j] - pg[i])
+            errs_p.append(np.linalg.norm(dpe - dpg))
+            dd = (R1e @ R0e.T) @ (R1g @ R0g.T).T
+            errs_o.append(np.linalg.norm(_log_so3_np(dd)))
+        out[str(L)] = {
+            "pos": Stats.from_values(errs_p).as_dict(),
+            "ori_deg": Stats.from_values(np.degrees(errs_o)).as_dict(),
+        }
+    return out
+
+
+def nees(p_est, q_est, p_std, q_std, p_gt, q_gt):
+    """Normalized estimation error squared from est/std/gt triplets
+    (reference: ResultSimulation / error_simulation NEES).
+
+    p_std/q_std: per-axis 1-sigma stds of the position / orientation error.
+    A consistent filter has mean NEES ~= dof (3 for each block).
+    """
+    perr = np.asarray(p_est) - np.asarray(p_gt)
+    nees_p = np.sum((perr / np.maximum(np.asarray(p_std), 1e-12)) ** 2, axis=1)
+    R_est = _quat_to_rot_np(np.asarray(q_est))
+    R_gt = _quat_to_rot_np(np.asarray(q_gt))
+    th = _log_so3_np(np.einsum("nij,nkj->nik", R_est, R_gt))
+    nees_q = np.sum((th / np.maximum(np.asarray(q_std), 1e-12)) ** 2, axis=1)
+    return {
+        "pos_nees": Stats.from_values(nees_p).as_dict(),
+        "ori_nees": Stats.from_values(nees_q).as_dict(),
     }

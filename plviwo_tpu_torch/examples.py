@@ -542,18 +542,40 @@ def feed(system, kind: str, args):
      "imu": system.feed_imu}[kind](*args)
 
 
-def feed_tracked(system, tracker, kind: str, args, line_tracker=None):
+def feed_tracked(system, tracker, kind: str, args, line_tracker=None, tag_tracker=None):
     """`feed`, with a "frame" event's images run through a host KLT tracker
     (`update/tracker.py`) into feed_camera (feed_stereo with a right
     image); with a line tracker (`update/line_tracker.py`) the left image's
     lines too, attached to the left points, as run_sim --images
-    --host-tracker --lines feeds them."""
+    --host-tracker --lines feeds them; with a tag tracker
+    (`update/aruco_tracker.py`, mono only) its corner features after the KLT
+    ones, as run_sim --tags feeds them.  With `system.viz` set, the frame's
+    tracking overlay (the left pixels, their previous positions, the lines)
+    as JAX's run_sim draws it."""
     if kind != "frame":
         return feed(system, kind, args)
     t, *imgs = args
+    if system.viz is not None:
+        sel = tracker.ids >= 0
+        prev_uvs = dict(zip(tracker.ids[sel].tolist(), tracker.uv[sel]))
     out = tracker.feed_stereo(*imgs) if len(imgs) == 2 else tracker.feed(imgs[0])
+    if tag_tracker is not None and len(imgs) == 1:
+        aids, auvs = tag_tracker.feed(imgs[0])
+        if len(aids):
+            # the tag corners ride the same feature database in their
+            # reserved id block (TrackAruco.cpp:142)
+            base = np.atleast_2d(out[1]) if len(out[0]) else np.zeros((0, 2))
+            out = (np.concatenate([out[0], aids]), np.concatenate([base, auvs]))
+    ids, uvs = out[:2]
+    segs = None
     if line_tracker is not None:
-        out += line_tracker.feed(imgs[0], out[0], out[1])
+        lines = line_tracker.feed(imgs[0], ids, uvs)
+        segs = lines[1]
+        out += lines
+    if system.viz is not None:
+        prev = (np.asarray([prev_uvs.get(i, uvs[k]) for k, i in enumerate(ids)])
+                if len(ids) else None)
+        system.viz.add_overlay(t, np.asarray(imgs[0]), uvs, prev, segs)
     (system.feed_stereo if len(imgs) == 2 else system.feed_camera)(t, *out)
 
 
@@ -612,3 +634,41 @@ def host_tracker_vio(device=CUDA, stereo: bool = False):
         feed_tracked(s, tracker, kind, args)
     errs = [np.linalg.norm(p - sim.gt_kin(t)["p_IinG"]) for t, _, p in s.traj]
     return float(np.sqrt(np.mean(np.square(errs)))), s.stats, s
+
+
+def desc_tracker_vio(device=CUDA, frame_hook=None):
+    """tests/test_descriptor.py::test_desc_tracker_e2e through the port: 8 s,
+    seed 2, 45 landmarks a frame, rendered frames -> `DescTracker` (80
+    slots, a 12 x 10 grid) -> the per-track filter (25 MSCKF features,
+    sigma_pix 2, chi2 x 8, tracks of >= 4), seeded from the ground truth.
+    frame_hook(tracker), when given, runs after each frame's tracking.
+    Returns (RMSE of the positions, stats, the VioSystem, the tracker)."""
+    from .config.options import EstimatorOptions
+    from .core.system import VioSystem
+    from .sim.simulator import SimConfig, Simulator
+    from .update.desc_tracker import DescTracker
+
+    sim = Simulator(SimConfig(duration=8.0, seed=2, n_pts=45))
+    o = EstimatorOptions()
+    o.cam.max_msckf, o.cam.sigma_pix, o.cam.min_track_length, o.cam.chi2_mult = 25, 2.0, 4, 8.0
+    s = VioSystem(o, device=device)
+    c = sim.cfg
+    s.set_calibration(c.intrinsics, c.cam_ext_q, c.cam_ext_p)
+    imu_t, imu_w, imu_a = sim.imu_stream()
+    kin0 = sim.gt_kin(imu_t[0])
+    q0, _ = sim.gt_pose(imu_t[0])
+    s.initialize_from(float(imu_t[0]), np.asarray(q0), kin0["p_IinG"], kin0["v_IinG"],
+                      sim.bg_true[0], sim.ba_true[0])
+    tracker = DescTracker(n_pts=80, cam_k=np.asarray(c.intrinsics), grid_x=12, grid_y=10,
+                          device=device)
+    frames = [(float(t), sim.render_frame(t, with_lines=False)) for t in sim.cam_times()]
+    k = 0
+    for i in range(len(imu_t)):
+        while k < len(frames) and frames[k][0] <= imu_t[i]:
+            s.feed_camera(frames[k][0], *tracker.feed(frames[k][1]))
+            if frame_hook is not None:
+                frame_hook(tracker)
+            k += 1
+        s.feed_imu(imu_t[i], imu_w[i], imu_a[i])
+    errs = [np.linalg.norm(p - sim.gt_kin(t)["p_IinG"]) for t, _, p in s.traj]
+    return float(np.sqrt(np.mean(np.square(errs)))), dict(s.stats), s, tracker

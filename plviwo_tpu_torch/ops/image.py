@@ -7,7 +7,9 @@ convolution call: cuDNN would run a float32 convolution in TF32), so both
 packages take the same multiply-adds in the same order.  The frame
 equalizes with `hist_equalize_quantile`; the host trackers with the LUT
 variant `hist_equalize`.  `bilinear_sample` serves the host line
-tracker's anchor walk (`line_detect.detect_segments`).
+tracker's anchor walk (`line_detect.detect_segments`), the tag detector's
+bit sampling and its corner refinement (`aruco`); `bilinear_sample_batch`,
+its per-sequence form, the gather LK (`klt.pyramidal_lk`).
 """
 
 from __future__ import annotations
@@ -156,4 +158,23 @@ def bilinear_sample(img, xy):
     taps = img.reshape(C, H * W)[:, torch.stack([at, at + 1, at + W, at + W + 1])]
     i00, i01, i10, i11 = taps.unbind(1)
     gx, gy = 1 - fx, 1 - fy
+    return i00 * gx * gy + i01 * fx * gy + i10 * gx * fy + i11 * fx * fy
+
+
+def bilinear_sample_batch(img, xy):
+    """`bilinear_sample` per sequence: a (B, C, H, W) stack sampled at its
+    own sequence's points xy (B, ..., 2) = (x, y): (B, C, ...), with the same
+    clamping, taps and order of products and sums.  A NaN coordinate samples
+    NaN (its taps' index is clamped into the image, as JAX's gather clamps)."""
+    B, C, H, W = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    at = (y0.long().clamp(0, H - 2) * W + x0.long().clamp(0, W - 2)).reshape(B, -1)
+    idx = torch.cat([at, at + 1, at + W, at + W + 1], dim=1)
+    taps = torch.gather(img.reshape(B, C, H * W), 2, idx[:, None].expand(B, C, -1))
+    i00, i01, i10, i11 = taps.reshape((B, C, 4) + xy.shape[1:-1]).unbind(2)
+    gx, gy = (1 - fx)[:, None], (1 - fy)[:, None]
+    fx, fy = fx[:, None], fy[:, None]
     return i00 * gx * gy + i01 * fx * gy + i10 * gx * fy + i11 * fx * fy

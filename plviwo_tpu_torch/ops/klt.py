@@ -2,6 +2,11 @@
 
 - `detect_grid`: Shi-Tomasi response -> per-grid-cell argmax with
   occupancy suppression -> the strongest cells first;
+- `pyramidal_lk`: the gather form of inverse-compositional pyramidal LK,
+  which the host KLT trackers run (`update/tracker.py`) and the images-in
+  frame under `cam.fused_lk_conv=False`.
+  JAX computes it in XLA outside any kernel, so plain torch is its port on
+  the card too;
 - `pyramidal_lk_conv`: the gather-free inverse-compositional pyramidal LK
   (patches + separable triangle taps).  It is the PLAIN VERSION of the
   hand kernel `csrc/lk_pyramid.cu` (`ops/lk_kernel.pyramidal_lk`), which is
@@ -10,8 +15,6 @@
 
 Every function takes a leading sequence axis B.  Ties break as in JAX:
 `torch.argmax` and `torch.argsort(stable=True)` take the first index.
-The gather form `pyramidal_lk` of the JAX package is off the frame's path
-and not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .image import shi_tomasi_score
+from .image import bilinear_sample_batch, gradients, shi_tomasi_score
 
 F32 = torch.float32
 
@@ -91,6 +94,73 @@ def detect_grid(img, occupied_uv, occupied_valid, grid_x: int, grid_y: int,
     order = torch.argsort(-cell_score, dim=-1, stable=True)[:, :n_max]
     uv = torch.stack([_take(u, order), _take(v, order)], dim=-1)
     return uv, _take(cell_score, order) > min_score
+
+
+# ---------------------------------------------------------------------------
+# pyramidal Lucas-Kanade, the gather form
+# ---------------------------------------------------------------------------
+
+def _lk_level(img_prev, img_next, uv_prev, uv_guess, half: int, iters: int):
+    """One pyramid level of inverse-compositional LK for all features.
+
+    img_prev, img_next (B,H,W); uv_prev (B,N,2) template centers in
+    img_prev; uv_guess (B,N,2) the estimates in img_next.  The template and
+    its gradients are one bilinear gather of the W x W window around each
+    center, and every iteration gathers the window at the current estimate
+    anew (no patch, no drift budget).  Returns (uv, err, good, inb)."""
+    W = 2 * half + 1
+    r = torch.arange(-half, half + 1, dtype=uv_prev.dtype, device=uv_prev.device)
+    offs = torch.stack([r.repeat(W), r.repeat_interleave(W)], dim=-1)  # (W^2,2), x fastest
+    gx, gy = gradients(img_prev)
+    fields = torch.stack([img_prev, gx, gy], dim=1)
+    T, Gx, Gy = bilinear_sample_batch(fields, uv_prev[..., None, :] + offs).unbind(1)
+    # 2x2 normal matrix (inverse compositional: the template's gradients)
+    a = torch.sum(Gx * Gx, dim=-1)
+    b_ = torch.sum(Gx * Gy, dim=-1)
+    c = torch.sum(Gy * Gy, dim=-1)
+    det = a * c - b_ * b_
+    good = det > 1e-6
+    bad = det < 1e-8
+    det_s = torch.where(bad, 1.0, det)
+    nxt = img_next[:, None]
+
+    def window(uv):
+        return bilinear_sample_batch(nxt, uv[..., None, :] + offs)[:, 0]
+
+    uv = uv_guess
+    for _ in range(iters):
+        e = window(uv) - T
+        bx = torch.sum(Gx * e, dim=-1)
+        by = torch.sum(Gy * e, dim=-1)
+        dx = torch.where(bad, 0.0, (c * bx - b_ * by) / det_s)
+        dy = torch.where(bad, 0.0, (-b_ * bx + a * by) / det_s)
+        uv = uv - torch.stack([dx, dy], dim=-1)
+    err = torch.mean(torch.abs(window(uv) - T), dim=-1)
+    H, Wd = img_next.shape[-2:]
+    inb = ((uv[..., 0] > half) & (uv[..., 0] < Wd - half - 1)
+           & (uv[..., 1] > half) & (uv[..., 1] < H - half - 1))
+    return uv, err, good, inb
+
+
+def pyramidal_lk(prev_pyr, next_pyr, uv_prev, valid, levels: int, half: int = 7,
+                 iters: int = 10, max_err: float = 0.08):
+    """Track features from prev to next through the pyramid, coarse to fine
+    (the gather form; the JAX host tracker's LK).
+
+    prev_pyr/next_pyr: sequences of (B, H/2^l, W/2^l) f32 images; uv_prev
+    (B,N,2) f32; valid (B,N).  Returns (uv_next (B,N,2), ok (B,N)).  No host
+    read."""
+    uv = uv_prev / 2.0 ** (levels - 1)
+    ok = valid
+    for l in range(levels - 1, -1, -1):
+        uv, err, good, inb = _lk_level(prev_pyr[l], next_pyr[l], uv_prev / 2.0**l, uv,
+                                       half, iters)
+        # a degenerate template at a coarse level leaves the estimate as it
+        # is; only the finest level's conditioning kills the track
+        ok = ok & inb & (good if l == 0 else True)
+        if l > 0:
+            uv = uv * 2.0
+    return uv, ok & (err < max_err)
 
 
 # ---------------------------------------------------------------------------

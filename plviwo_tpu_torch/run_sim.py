@@ -8,12 +8,18 @@ Without --images the camera stream is the simulator's data association
 (tracked ids and pixels, `Simulator.cam_frame`) into the per-track path
 (`feed_camera` / `feed_stereo`); with --images, rendered frames into the
 images-in path (`feed_image`), or with --images --host-tracker into the
-host KLT trackers (`update/tracker.py`, LK on the card's kernel; with
---lines also the host line tracker, `update/line_tracker.py`, fed the point
-tracker's ids and pixels) and from them into the per-track path.
---auto-init starts the filter from the IMU(+wheel) initializer instead of
-the ground truth (the ATE then aligns position and yaw); --imu-res
-interpolates the per-track poses by continuous preintegration.
+host KLT trackers (`update/tracker.py`; with --lines also the host line
+tracker, `update/line_tracker.py`, fed the point tracker's ids and pixels)
+and from them into the per-track path.  --tags paints 6 fiducial tags on
+the ground, looks down with a nadir camera and merges the ArUco tracker's
+corner features (`update/aruco_tracker.py`, ids from 10,000,000 up) after
+the KLT ones; it implies --images --host-tracker.  --auto-init starts the
+filter from the IMU(+wheel) initializer instead of the ground truth (the
+ATE then aligns position and yaw); --imu-res interpolates the per-track
+poses by continuous preintegration.  --record DIR writes the MINS-format
+est/std/gt triplets, the trajectory and the frame timing
+(`utils/recorder.py`, for `python -m plviwo_tpu_torch.eval nees DIR`);
+--viz-dir DIR the tracking overlays and the PLY dumps (`utils/viz.py`).
 
 Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --wheel --gps --out traj.txt
@@ -24,9 +30,11 @@ Usage (on the card; `--device cpu` runs the same on the CPU):
     python -m plviwo_tpu_torch.run_sim --images --host-tracker --stereo --wheel --gps
     python -m plviwo_tpu_torch.run_sim --images --host-tracker --lines --wheel [--plc]
     python -m plviwo_tpu_torch.run_sim --wheel --auto-init --imu-res
+    python -m plviwo_tpu_torch.run_sim --tags --duration 8 --seed 2
+    python -m plviwo_tpu_torch.run_sim --wheel --record out/ --viz-dir out/viz
 
-Options of the JAX driver that the port does not run yet exit non-zero
-naming their ROADMAP queue.
+Per-track-only options with --images but without --host-tracker exit 2
+naming the ROADMAP queue that ported them for the per-track path.
 """
 
 from __future__ import annotations
@@ -37,10 +45,6 @@ import math
 import sys
 import time
 
-# JAX driver options not ported yet -> the ROADMAP queue that owns them
-_NOT_PORTED = {
-    "tags": "A9d (ArUco tags)", "viz_dir": "A10 (utils/viz)", "record": "A10 (utils/recorder)",
-}
 # options only the per-track path reads (JAX's feed_image path ignores them)
 # -> the ROADMAP queue that ported them there
 _TRACKS_ONLY = {"intr_order": "A9a", "calib": "A9a", "sequential_update": "A9a",
@@ -97,29 +101,31 @@ def _parser():
                     help="per-sensor sequential EKF updates instead of one joint update a frame")
     ap.add_argument("--out", type=str, default=None, help="TUM trajectory output path")
     ap.add_argument("--tags", action="store_true",
-                    help=f"not ported yet (ROADMAP {_NOT_PORTED['tags']})")
-    for flag in ("viz_dir", "record"):
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
+                    help="ground fiducial tags and the ArUco tracker's corner feed (implies "
+                         "--images --host-tracker; nadir camera)")
+    ap.add_argument("--viz-dir", type=str, default=None,
+                    help="write tracking overlays and 3-D feature/line dumps (PLY) here")
+    ap.add_argument("--record", type=str, default=None,
+                    help="directory for MINS-format est/std/gt triplets and timing")
     return ap
 
 
 def _refusals(args):
-    what = [f"--{f.replace('_', '-')}: ROADMAP {q}" for f, q in _NOT_PORTED.items()
-            if getattr(args, f) not in (False, None)]
-    if args.images and not args.host_tracker:
-        what += [f"--{f.replace('_', '-')} with --images: the images-in path does not read it "
-                 f"(ROADMAP {q} ported it for the per-track path: run without --images or with "
-                 "--host-tracker)"
-                 for f, q in sorted(_TRACKS_ONLY.items()) if getattr(args, f) not in (False, None)]
-    return what
+    if not args.images or args.host_tracker:
+        return []
+    return [f"--{f.replace('_', '-')} with --images: the images-in path does not read it "
+            f"(ROADMAP {q} ported it for the per-track path: run without --images or with "
+            "--host-tracker)"
+            for f, q in sorted(_TRACKS_ONLY.items()) if getattr(args, f) not in (False, None)]
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
+    if args.tags:
+        args.images = args.host_tracker = True
     what = _refusals(args)
     if what:
-        print("run_sim: not ported yet: " + "; ".join(what), file=sys.stderr)
+        print("run_sim: refused: " + "; ".join(what), file=sys.stderr)
         return 2
 
     import numpy as np
@@ -133,6 +139,12 @@ def main(argv=None):
 
     cfg = SimConfig(duration=args.duration, seed=args.seed, sigma_pix=args.sigma_pix,
                     n_pts=int(args.n_pts))
+    if args.tags:
+        # ground fiducials and a nadir camera (the TrackAruco scenario: tags
+        # on the ground seen from above, in-plane rotation from the yaw)
+        cfg.n_tags = 6
+        cfg.cam_ext_q = (1.0, 0.0, 0.0, 0.0)
+        cfg.cam_ext_p = (0.0, 0.0, 0.0)
     sim = Simulator(cfg)
 
     opts = EstimatorOptions()
@@ -244,7 +256,21 @@ def main(argv=None):
             n_pts=80, cam_k=np.asarray(cfg.intrinsics), grid_x=12, grid_y=10, device=args.device)
         ltracker = (LineTracker(max_lines=opts.cam.max_lines, min_length=30.0, device=args.device)
                     if args.lines else None)
-        feeds["tracked"] = lambda *a: feed_tracked(sys_, tracker, "frame", a, ltracker)
+        atracker = None
+        if args.tags:
+            from .update.aruco_tracker import ArucoTracker
+
+            atracker = ArucoTracker(max_tag_id=16, device=args.device)
+        feeds["tracked"] = lambda *a: feed_tracked(sys_, tracker, "frame", a, ltracker, atracker)
+    recorder = None
+    if args.record:
+        from .utils.recorder import StateRecorder
+
+        recorder = StateRecorder(args.record)
+    if args.viz_dir:
+        from .utils.viz import VizRecorder
+
+        sys_.viz = VizRecorder(args.viz_dir)
     nxt = [0] * len(streams)
 
     t_wall = time.time()
@@ -253,8 +279,22 @@ def main(argv=None):
             while nxt[k] < len(items) and items[nxt[k]][0] <= imu_t[i]:
                 feeds[kind](*items[nxt[k]])
                 nxt[k] += 1
+        n0 = len(sys_.traj)
         sys_.feed_imu(imu_t[i], imu_w[i], imu_a[i])
+        if recorder is not None and len(sys_.traj) > n0:
+            t_now = sys_._time
+            kin = sim.gt_kin(t_now)
+            j = min(int(np.searchsorted(imu_t, t_now)), len(imu_t) - 1)
+            recorder.record(sys_, gt={"q": quat(kin["R_GtoI"]), "p": kin["p_IinG"],
+                                      "v": kin["v_IinG"], "bg": sim.bg_true[j],
+                                      "ba": sim.ba_true[j]})
+            if sys_.frame_timing:
+                recorder.record_timing(t_now, sys_.frame_timing)
     wall = time.time() - t_wall
+    if recorder is not None:
+        recorder.save()
+    if sys_.viz is not None:
+        sys_.viz.save()
 
     rmse = float("nan")
     have = len(sys_.traj) >= 3

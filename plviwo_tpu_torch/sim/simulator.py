@@ -11,9 +11,9 @@ without JAX.
 Ported: `gt_pose`, `gt_kin`, `imu_stream`, `cam_times`, `cam_frame` (the
 simulator's data association, both stereo cameras), `line_frame` (the
 lines' association) and `line_dir_class`, `render_frame` (with
-`_draw_line`, both cameras), `wheel_times`, `wheel_sample`,
-`gps_times` and `gps_sample`.  Not ported: fiducial tags (`n_tags > 0` is
-refused).
+`_draw_line`, both cameras, and the fiducial tags painted on the ground),
+`tag_corners_world`, `wheel_times`, `wheel_sample`, `gps_times` and
+`gps_sample`.
 
 Conventions match the filter: q_GtoI JPL, gravity g = [0,0,9.81],
 a_m = R_GtoI (a_G + g) + ba + n_a,  w_m = w_body + bg + n_g.
@@ -69,7 +69,9 @@ class SimConfig:
     # gps
     sigma_gps: float = 0.5
     gps_ext_p: tuple = (0.0, 0.0, 0.3)
-    # fiducial tags (not ported: must stay 0)
+    # fiducial tags painted on the ground plane (the TrackAruco test
+    # surface), rendered in full perspective by the ground raycast, so the
+    # tag corners are fixed world points; tag_size = black border side [m]
     n_tags: int = 0
     tag_size: float = 0.5
     # roll/pitch excitation [rad] added to the figure-8
@@ -84,8 +86,6 @@ class Simulator:
     def __init__(self, cfg: SimConfig | None = None, controls=None):
         self.cfg = cfg or SimConfig()
         c = self.cfg
-        if c.n_tags > 0:
-            raise NotImplementedError("fiducial tags are not ported (n_tags must be 0)")
         if controls is None:
             # a fixed-pace figure-8 whatever part of it is replayed
             lap = max(c.duration + 4.0, 60.0)
@@ -119,6 +119,17 @@ class Simulator:
         self.line_dir_class = np.concatenate(
             [np.full(n_v, 3), np.full(n_x, 1), np.full(c.n_lines - n_v - n_x, 2)])
         self.ground_z = float(self.landmarks[:, 2].min() - 2.0)
+
+        # fiducial tags on the ground along the path (TrackAruco analogue)
+        if c.n_tags > 0:
+            from ..ops import aruco
+
+            self.tag_codes = aruco.tag_family()[: c.n_tags]
+            self.tag_bitmaps = np.stack([aruco.tag_bitmap(code) for code in self.tag_codes])
+            idx = np.linspace(0, len(path) - 1, c.n_tags).astype(int)
+            jitter = self.rng.uniform(-1.5, 1.5, size=(c.n_tags, 2))
+            self.tag_center = path[idx, :2] + jitter
+            self.tag_yaw = self.rng.uniform(0, 2 * np.pi, size=c.n_tags)
 
         # bias random walks sampled on the IMU grid
         n_imu = int((self.t_end - self.t_start) * c.imu_hz) + 1
@@ -280,7 +291,43 @@ class Simulator:
             _, segs = self.line_frame(t)
             for seg in segs:
                 self._draw_line(img, seg, depth=0.35)
+
+        # --- composite the ground tags (painted last: fiducials are opaque) ---
+        cell_m = c.tag_size / 6.0
+        for k in range(c.n_tags):
+            dx = gx - self.tag_center[k, 0]
+            dy = gy - self.tag_center[k, 1]
+            cy_, sy_ = np.cos(self.tag_yaw[k]), np.sin(self.tag_yaw[k])
+            u = (cy_ * dx + sy_ * dy) / cell_m
+            v = (-sy_ * dx + cy_ * dy) / cell_m
+            inside = hit & (np.abs(u) < 4.0) & (np.abs(v) < 4.0)
+            if not inside.any():
+                continue
+            bm = self.tag_bitmaps[k]
+            # bitmap row from -v: a ground plane is viewed from above, so the
+            # plane's v maps to image -y; the flip makes the painted pattern
+            # read canonically (a proper rotation, no mirror) for any camera
+            # looking down
+            bi = np.clip(((4.0 - v) * (bm.shape[0] / 8.0)).astype(int), 0, bm.shape[0] - 1)
+            bj = np.clip(((u + 4.0) * (bm.shape[1] / 8.0)).astype(int), 0, bm.shape[1] - 1)
+            img = np.where(inside, bm[bi, bj], img)
         return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+    def tag_corners_world(self):
+        """(T, 4, 3) world positions of each tag's canonical TL, TR, BR, BL
+        border corners (tag-local cells (-3,-3), (3,-3), (3,3), (-3,3))."""
+        c = self.cfg
+        cell_m = c.tag_size / 6.0
+        # the canonical (detector-space) corner (cu, cv) sits at the painted
+        # tag-local (cu, -cv) (the bitmap-row flip in render_frame)
+        local = np.array([[-3.0, 3.0], [3.0, 3.0], [3.0, -3.0], [-3.0, -3.0]])
+        out = np.zeros((c.n_tags, 4, 3))
+        for k in range(c.n_tags):
+            cy_, sy_ = np.cos(self.tag_yaw[k]), np.sin(self.tag_yaw[k])
+            R = np.array([[cy_, -sy_], [sy_, cy_]])
+            out[k, :, :2] = self.tag_center[k] + (local * cell_m) @ R.T
+            out[k, :, 2] = self.ground_z
+        return out
 
     @staticmethod
     def _draw_line(img, seg, depth=0.3):

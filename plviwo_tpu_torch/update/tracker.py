@@ -9,16 +9,14 @@ with validity masks.  `StereoKltTracker.feed_stereo` adds a left->right LK
 pass a frame under shared ids.
 
 Every step runs on the tracker's device, B = 1, with the port's ops: LK is
-`ops/lk_kernel.pyramidal_lk`, which launches the hand-written kernel on the
-card (once a mono frame, twice a stereo frame) and runs its plain version
-on the CPU.  JAX's host tracker calls the gather LK `klt.pyramidal_lk`,
-which the port does not carry (ROADMAP C, known differences): this one
-computes what JAX's `pyramidal_lk_conv` / `pyramidal_lk_pallas` compute.
-The RANSAC draws are the port's stateless (key, counter) hash
-(`klt.draw_hypotheses`); the counter counts the frames that ran RANSAC, as
-JAX's key is split once for each of them.  The decisions JAX takes on the
-host (RANSAC only with >= 12 tracked features; detections into the free
-slots in order) are taken on the device, so a frame reads the device once:
+the gather form `klt.pyramidal_lk`, as JAX's host tracker calls it (plain
+torch on the card too: JAX runs it in XLA, outside any kernel; the LK
+kernel serves the images-in frame's conv form).  The RANSAC draws are the
+port's stateless (key, counter) hash (`klt.draw_hypotheses`); the counter
+counts the frames that ran RANSAC, as JAX's key is split once for each of
+them.  The decisions JAX takes on the host (RANSAC only with >= 12 tracked
+features; detections into the free slots in order) are taken on the
+device, so a frame reads the device once:
 the slots' pixels, validity and ids (and with stereo the right pixels).
 """
 
@@ -33,7 +31,6 @@ from ..core.state import CUDA, checked_device
 from ..ops import cam as cam_ops
 from ..ops import image as image_ops
 from ..ops import klt as klt_ops
-from ..ops import lk_kernel
 
 F32 = torch.float32
 F64 = torch.float64
@@ -84,8 +81,8 @@ class KltTracker:
         pyr = self._pyramid(img)
         uv, valid, ids = self._uv, self._valid, self._ids
         if self.prev_pyr is not None and self.valid.any():
-            uv_next, ok = lk_kernel.pyramidal_lk(self.prev_pyr, pyr, uv.to(F32), valid,
-                                                 self.levels, self.half, self.iters)
+            uv_next, ok = klt_ops.pyramidal_lk(self.prev_pyr, pyr, uv.to(F32), valid,
+                                               self.levels, self.half, self.iters)
             uv_next = uv_next.to(F64)
             ok = ok & valid
             if self.cam_k is not None:
@@ -147,9 +144,7 @@ class StereoKltTracker(KltTracker):
     feed_stereo, TrackKLT.cpp:202-393, which also tracks the right stream
     over time; anchoring on the left and re-matching L->R each frame is the
     simpler variant with the same output: one id observed in both cameras at
-    one time).  The L->R pass starts from the left positions, so with LK's
-    drift budget (5 px at the coarsest of 3 levels) disparities beyond about
-    20 px fail (PERF.md, open questions)."""
+    one time).  The L->R pass starts from the left positions."""
 
     def __init__(self, *a, max_y_diff=6.0, max_disparity=120.0, **kw):
         super().__init__(*a, **kw)
@@ -163,8 +158,8 @@ class StereoKltTracker(KltTracker):
         self._track(img0)  # temporal left (sets prev_pyr to the left pyramid)
         pyr1 = self._pyramid(img1)
         uv, valid = self._uv, self._valid
-        uv_r, ok = lk_kernel.pyramidal_lk(self.prev_pyr, pyr1, uv.to(F32), valid, self.levels,
-                                          self.half, self.iters)
+        uv_r, ok = klt_ops.pyramidal_lk(self.prev_pyr, pyr1, uv.to(F32), valid, self.levels,
+                                        self.half, self.iters)
         uv_r = uv_r.to(F64)
         # epipolar-band and disparity gate (a rectified-ish pair: the point
         # shifts left in the right camera)

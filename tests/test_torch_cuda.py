@@ -13,7 +13,9 @@ Tolerances: gate/Gram `ok` equal, G and c within atol 2e-5 max|G|, rtol
 max|dp| < 1e-5 and max|dcov| < 1e-4 max|cov|; the LK kernel `ok` equal on
 >= 99% of the features and, where both accept, median |duv| < 1e-3 px and
 max < 0.05 px (the bounds of tests/test_lk_kernel.py: the kernel's samples
-equal the plain version's, its warp sums take another order).
+equal the plain version's, its warp sums take another order); the gather LK
+`ok` equal and pixels within 1e-3 px of the CPU's; the tag detector's
+detections equal to the CPU's and corners within 1e-3 px.
 """
 
 import numpy as np
@@ -661,7 +663,8 @@ def test_line_tracker_on_the_card_matches_the_cpu(cuda_device, line_frames):
 @pytest.mark.cuda
 def test_run_kaist_on_the_card(cuda_device, tmp_path):
     """run_kaist over a 2 s fixture (640 x 480 at 8 Hz) on the card: the
-    summary, the native store, one LK launch a frame after the first."""
+    summary, the native store, no LK launch (the host tracker runs JAX's
+    gather LK in plain torch)."""
     import contextlib
     import io
     import json
@@ -682,4 +685,48 @@ def test_run_kaist_on_the_card(cuda_device, tmp_path):
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     assert rc == 0 and out["frames"] == 16 and out["device"] == torch.cuda.get_device_name(0)
     assert out["feature_store"] == "native" and out["ate_rmse_m"] < 0.5, out
-    assert lk_kernel.lk_pyramid.launches == out["frames"] - 1
+    assert lk_kernel.lk_pyramid.launches == 0
+
+
+@pytest.mark.cuda
+def test_gather_lk_on_the_card_matches_the_cpu(cuda_device):
+    """The host trackers' gather LK (plain torch) on the card against the
+    CPU on two consecutive 640 x 480 frames, 80 detections."""
+    from plviwo_tpu_torch.ops import image, klt
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=3.0, seed=2, n_landmarks=350))
+    ts = sim.cam_times()[:2]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pyrs = [image.build_pyramid(image.hist_equalize(torch.as_tensor(
+            sim.render_frame(t, with_lines=False), device=dev)[None]), 3) for t in ts]
+        none = torch.zeros((1, 1), dtype=torch.bool, device=dev)
+        uv, ok = klt.detect_grid(pyrs[0][0], torch.zeros((1, 1, 2), device=dev), none, 12, 10, 80,
+                                 min_px_dist=10.0)
+        if dev == "cpu":
+            start = (uv, ok)
+        uv, ok = start[0].to(dev), start[1].to(dev)
+        out[str(dev)] = [x[0].cpu().numpy() for x in klt.pyramidal_lk(*pyrs, uv, ok, 3, 7, 10)]
+    (cu, cok), (gu, gok) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(gok, cok)
+    assert cok.sum() > 40
+    np.testing.assert_allclose(gu[cok], cu[cok], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_tag_detector_on_the_card_matches_the_cpu(cuda_device):
+    """The ArUco detector (FP32 NCC bank, peaks, decode, corner refinement)
+    on painted 640 x 480 frames, the card against the CPU."""
+    import chip_smoke
+    from plviwo_tpu_torch.ops import aruco
+
+    card, cpu = aruco.TagDetector(device=cuda_device), aruco.TagDetector(device="cpu")
+    for img, tags in chip_smoke.tag_frames():
+        got = {k: v.cpu().numpy() for k, v in card.detect(img).items()}
+        want = {k: v.numpy() for k, v in cpu.detect(img).items()}
+        ok = want["valid"]
+        np.testing.assert_array_equal(got["valid"], ok)
+        np.testing.assert_array_equal(got["tag_id"][ok], want["tag_id"][ok])
+        assert sorted(int(t) for t in got["tag_id"][ok]) == sorted(t[0] for t in tags)
+        np.testing.assert_allclose(got["corners"][ok], want["corners"][ok], rtol=0, atol=1e-3)

@@ -5,7 +5,8 @@ the CPU the LK and gate/Gram kernels' plain versions) against the JAX
 `track_frame` / `fused_frame` with its XLA defaults, on frames rendered by
 the JAX simulator: points and wheel (`use_lines=False`), and bench.py's
 whole unit, points + lines + wheel + GPS (10 Hz fixes, 4 per frame at
-most).  RANSAC's hypotheses
+most); `track_frame` also with `lk_conv=False`, both packages on their
+gather LK.  RANSAC's hypotheses
 come from JAX's threefry PRNG, which the port's counter hash does not
 reproduce: the port draws them through `ops.klt.draw_hypotheses`, which
 the parity tests replace with a replay of JAX's draws.  Also: the port's simulator and input
@@ -45,7 +46,7 @@ from plviwo_tpu_torch import examples
 from plviwo_tpu_torch.core import frame
 from plviwo_tpu_torch.core.layout import StateLayout
 from plviwo_tpu_torch.core.state import FilterState
-from plviwo_tpu_torch.ops import klt
+from plviwo_tpu_torch.ops import klt, lk_kernel
 from plviwo_tpu_torch.ops.chi2 import _TABLE as T_CHI2
 from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
 from tests.test_fused_frame import _imu_window, _seed_state, _wheel_window
@@ -177,7 +178,7 @@ def test_simulator_and_builders_match_jax():
     np.testing.assert_array_equal(ts.rng.normal(size=3), js.rng.normal(size=3))
 
 
-def test_track_frame_matches_jax(scene, monkeypatch):
+def _track_frame_parity(scene, monkeypatch, lk_conv):
     sim, frames = scene
     monkeypatch.setattr(klt, "draw_hypotheses", JaxDraws())
     k = np.asarray(sim.cfg.intrinsics)
@@ -186,9 +187,11 @@ def test_track_frame_matches_jax(scene, monkeypatch):
     harvested = line_harvested = 0
     for i, f in enumerate(frames):
         jts, jh, jlh = j_track_frame(jts, jnp.asarray(f["img"]), jnp.asarray(k),
-                                     jnp.asarray(f["t"]), jnp.asarray(i, jnp.int32))
+                                     jnp.asarray(f["t"]), jnp.asarray(i, jnp.int32),
+                                     lk_conv=lk_conv)
         tts, th, tlh = frame.track_frame(tts, _t(f["img"]), _t(k),
-                                         torch.tensor([f["t"]], dtype=F64), torch.tensor([i]))
+                                         torch.tensor([f["t"]], dtype=F64), torch.tensor([i]),
+                                         lk_conv=lk_conv)
         for name in ("valid", "n_obs", "hist_slot", "lvalid", "l_nobs", "lhist_slot", "lattach"):
             np.testing.assert_array_equal(getattr(tts, name)[0].numpy(),
                                           np.asarray(getattr(jts, name)), err_msg=f"{i} {name}")
@@ -206,6 +209,25 @@ def test_track_frame_matches_jax(scene, monkeypatch):
         line_harvested += int(jlh[3].any(axis=1).sum())
     assert int(jts.valid.sum()) >= 48 and harvested > 0
     assert int(jts.lvalid.sum()) >= 4 and line_harvested > 0
+
+
+def test_track_frame_matches_jax(scene, monkeypatch):
+    _track_frame_parity(scene, monkeypatch, lk_conv=True)
+
+
+def test_track_frame_gather_lk_matches_jax(scene, monkeypatch):
+    """`cam.fused_lk_conv=False`: both frames track with their gather LK
+    (JAX's `klt.pyramidal_lk`, the port's plain-torch copy), held to the
+    same tolerances.  The detector's score is JAX's compiled one (as in
+    tests/test_torch_host_tracker.py): on this run two cells' maxima tie
+    at the rounding level by the fourth frame, and the port's own score
+    orders them the other way."""
+    from tests.test_torch_host_tracker import jax_score
+
+    monkeypatch.setattr(klt, "shi_tomasi_score", jax_score)
+    launches = lk_kernel.lk_pyramid.launches
+    _track_frame_parity(scene, monkeypatch, lk_conv=False)
+    assert lk_kernel.lk_pyramid.launches == launches
 
 
 def _run_jax(state, ts, f, gravity, lines_gps=False):

@@ -441,27 +441,31 @@ def test_run_sim_cli(capsys):
 
 
 @pytest.mark.parametrize("argv,queue", [
-    (["--images", "--dynamic", "--intr-order", "3"], "A9a"),
-    (["--images", "--tags"], "A9d"), (["--images", "--imu-res"], "A9c"),
+    (["--images", "--dynamic", "--intr-order", "3"], "A9a"), (["--images", "--imu-res"], "A9c"),
     (["--images", "--calib"], "A9a"), (["--images", "--lines", "--plc"], "A9b"),
-    (["--images", "--record", "out"], "A10"), (["--images", "--sequential-update"], "A9a")])
+    (["--images", "--sequential-update"], "A9a")])
 def test_run_sim_refuses_unported_modes(capsys, argv, queue):
     assert run_sim.main(["--device", "cpu"] + argv) != 0
     err = capsys.readouterr()
     assert f"ROADMAP {queue}" in err.err and not err.out
 
 
-def _refusal(case):
-    opts = t_options.EstimatorOptions()
-    if case == "gather_lk":
-        opts.cam.fused_lk_conv = False
-    return lambda: VioSystem(opts, device="cpu")
+def test_feed_image_runs_the_gather_lk():
+    """`cam.fused_lk_conv=False`: the images-in frame tracks with the
+    gather LK, launching no kernel (its `track_frame` is held to JAX's in
+    tests/test_torch_fused_frame.py)."""
+    from plviwo_tpu_torch.ops import lk_kernel
 
-
-@pytest.mark.parametrize("case,queue", [("gather_lk", "Not ported")])
-def test_system_refuses_unported_modes(case, queue):
-    with pytest.raises(NotImplementedError, match=queue):
-        _refusal(case)()
+    sim = Simulator(SimConfig(**LIVE_SIM))
+    opts = _small_live(t_options.EstimatorOptions())
+    opts.cam.fused_lk_conv = False
+    s = VioSystem(opts, device="cpu")
+    examples.live_calibrate(s, sim, LIVE_T0)
+    launches = lk_kernel.lk_pyramid.launches
+    for kind, args in examples.live_events(sim, LIVE_T0, 4):
+        examples.feed(s, kind, args)
+    assert len(s.traj) == 4 and int(s.track_state.valid.sum()) > 16
+    assert lk_kernel.lk_pyramid.launches == launches
 
 
 def test_system_needs_a_card_unless_asked_for_the_cpu():
