@@ -145,6 +145,16 @@ Phases (any failure raises, so the exit code is non-zero):
      `eval ate`, `rpe` and `nees` over the recorded files, a checkpoint
      halfway through a replay resumed on the card and equal to the unbroken
      run, and the syncs a frame with the recorder and viz off and on.
+  32. the distributed layer (`plviwo_tpu_torch/parallel`) on the one card, its
+     ranks child processes sharing it over Gloo (`phase_distributed`): the
+     dry run at world 2 and 4 (sharded full step and images-in frame within
+     1e-9 of one process, launches per rank), the multi-process worker at
+     world 2, config 5 (4 sequences of 12 s, BA) at 4 ranks against 1 rank
+     with tests/test_batch_replay.py's gates scaled to it and JAX's ATEs,
+     both kernels against their plain versions on these paths' own
+     arguments, a lone sequence's replay against its pair's (the pairing's
+     cost), and the scaling harness at 1, 2 and 4 ranks with its unsharded
+     control.
 Phases 16-31 launch no kernel (asserted): no TPU kernel lies on JAX's
 per-track path, CPI, ZUPT, the initializers, its host trackers (gather LK),
 the tag and descriptor trackers or the utilities.  Synthetic gate/Gram checks
@@ -208,6 +218,14 @@ KAIST_REPLAY_JAX_ATE = 0.10269945706667286
 # and phase 30's RMSE from tests/test_descriptor.py::test_desc_tracker_e2e's scenario (m),
 # JAX as it ships on the CPU, recomputed by the same test
 TAGS_JAX_ATE, DESC_JAX_RMSE = 0.2949, 0.25226061231847174
+# phase 32's config 5 (BASELINE.json configs[4]) at JAX's defaults: 4 sequences of 12 s
+# (seeds 10-13), 11 clones, 32 points, 8 obs, 12 lines, keyframes every 3 frames, 5 BA
+# iterations; JAX's run_batch_replay on the CPU: each sequence's ate_before_m (m)
+# (tests/test_torch_parallel.py::test_chip_smoke_jax_constants recomputes these)
+C5 = dict(n_seq=4, duration=12.0, n_clones=11, F=32, O=8, L=12, kf_stride=3, ba_iters=5,
+          seed0=10)
+C5_JAX_ATE_BEFORE = (0.24754664597279855, 0.23174230482213568, 0.22302863746678608,
+                     0.20565519042092892)
 # H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, FP32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
@@ -306,8 +324,9 @@ def check_gram(out, ref, tag):
     return max(float((G1 - G0).abs().max()), float((c1 - c0).abs().max()))
 
 
-def phase_gram(tag, args):
-    """gate/Gram kernel vs plain version on one call's arguments."""
+def phase_gram(tag, args, mixed=True):
+    """gate/Gram kernel vs plain version on one call's arguments; with mixed,
+    the call must accept some features and reject others."""
     import torch
 
     from plviwo_tpu_torch.ops.msckf_kernel import gram_gate, gram_gate_plain
@@ -318,7 +337,7 @@ def phase_gram(tag, args):
     err = check_gram(out, ref, tag)
     ok1 = out[2]
     n_ok = int(ok1.sum())
-    if not 0 < n_ok < ok1.numel():
+    if mixed and not 0 < n_ok < ok1.numel():
         raise AssertionError(f"{tag}: gate accepted {n_ok} of {ok1.numel()}")
     ms = cuda_ms(lambda: gram_gate(*args))
     plain_ms = cuda_ms(lambda: gram_gate_plain(*args))
@@ -2456,6 +2475,278 @@ def phase_record_viz_eval(dev):
     return out
 
 
+def recorded(fn, n_gram, keep_rank, *, group, **kwargs):
+    """fn(group=group, **kwargs) in a rank of phase 32 under `recording`:
+    (fn's result, on rank keep_rank the arguments of its last n_gram
+    gate/Gram calls and of its last LK call, else None)."""
+    capture = {}
+    with recording(capture, n_gram=n_gram):
+        out = fn(group=group, **kwargs)
+    return out, (capture if group.rank == keep_rank else None)
+
+
+def dryrun_next_frame(*, group):
+    """The dry run's sharded images-in frame (`dryrun._frame_batch`) and the
+    frame after it, each rank its shard: (tracked, on rank 0 the arguments
+    of the second frame's calls, whose LK tracks the corners the first
+    detected, else None)."""
+    from plviwo_tpu_torch.core.frame import fused_frame
+    from plviwo_tpu_torch.parallel import dryrun, replay
+
+    sl = replay.shard_slice(group, group.world)
+    frames = [dryrun._frame_batch(group.world, group.device, t) for t in (1.0, 1.1)]
+    state, ts = (replay.take_shard(group, x, sl) for x in frames[0][:2])
+    capture = {}
+    for i, (_, _, args, rest, kw) in enumerate(frames):
+        shard = [replay.take_shard(group, a, sl) for a in args]
+        with recording(capture) if i else contextlib.nullcontext():
+            state, ts, m = replay.step_no_lone(fused_frame, 2 + len(shard), state, ts, *shard,
+                                               *rest, **kw)
+    return int(m["tracked"].sum()), (capture if group.rank == 0 else None)
+
+
+def replay_unpaired(*, group, **kwargs):
+    """`batch_replay.replay_rank` with a lone sequence stepped alone: the
+    lone path that `replay.step_no_lone` replaces on the card by a pair."""
+    from plviwo_tpu_torch.parallel import batch_replay, replay
+
+    paired = replay.step_no_lone
+    replay.step_no_lone = lambda fn, n_batched, *args, **kw: fn(*args, **kw)
+    try:
+        return batch_replay.replay_rank(group=group, **kwargs)
+    finally:
+        replay.step_no_lone = paired
+
+
+def on_card(x, dev):
+    """x with every numpy array (as a rank returns its tensors) a tensor on dev."""
+    import torch
+
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x).to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(on_card(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: on_card(v, dev) for k, v in x.items()}
+    return x
+
+
+# phase 32's paths in the kernels' launches_by_path: launches summed over every rank of
+# the dry runs at world 2 and 4 (the sharded step, the sharded frame) and of config 5 at
+# 4 ranks and at 1
+DISTRIBUTED_PATHS = ("sharded_step", "dryrun_fused_frame", "batch_replay")
+# config 5's first sequence alone at 1 rank: stepped alone (`replay_unpaired`) and as a
+# pair (`replay.step_no_lone`), lone, pair, pair, lone: what the pairing costs the card
+C5_ONE = dict(C5, n_seq=1)
+
+
+def phase_distributed(dev):
+    """Phase 32, the distributed layer (`plviwo_tpu_torch/parallel`) on the one
+    card, its ranks child processes of this script sharing the card over Gloo
+    (world 1 runs here, over NCCL: one rank, one card); one process start per
+    world for all of its jobs:
+    (a) the dry run (`parallel.dryrun`) at world 2 and 4: the sharded full
+    step and images-in frame within 1e-9 of one process (bit for bit
+    printed), 2 gate/Gram launches per rank in the step, 1 LK and 2
+    gate/Gram in the frame; at world 4 both kernels against their plain
+    versions on a rank's own arguments: the step's two gate/Gram calls and
+    the frame's two (rank 1: rank 0 also runs the one-process references),
+    and the LK call of the frame after it (`dryrun_next_frame`: the dry
+    run's one frame has nothing to track yet);
+    (b) `python -m plviwo_tpu_torch.parallel.multiproc_worker` at world 2:
+    each shard within 1e-9 of its B = 1 run (bit for bit printed);
+    (c) config 5 (`parallel.batch_replay`, C5) at 4 ranks and at 1: the
+    trajectories within 1e-9 m of each other and the ATEs equal to the digits
+    printed; accepted > 200, lines_accepted > 40; each ate_before_m < 1.0 and
+    within 1.5x of JAX's; each ate_after_m <= 1.15 ate_before_kf_m; the last
+    BA gain < 1e-2 the first; on every rank 2 gate/Gram launches a frame and
+    no LK; gate/Gram against its plain version on the newest point and line
+    calls that accept some features and reject others, at 4 ranks (rank 0,
+    its sequence as a pair) and at 1 (B = 4); the replay's wall time, the
+    BA's ms a sequence; C5_ONE stepped alone and as a pair: the pairing's
+    replay time against the lone path's, the paired trajectory equal to the
+    4-rank run's sequence 0 within 1e-9 m, how far the lone one ends from it;
+    (d) `parallel.scaling` at 1, 2 and 4 ranks with the unsharded control:
+    readings, finite and positive.
+    Returns the launches of each path, the kernel checks and the readings."""
+    import math
+    import tempfile
+
+    from plviwo_tpu_torch.parallel import batch_replay, dryrun, scaling
+    from plviwo_tpu_torch.parallel.replay import run_rank_jobs
+
+    n_frames = int((C5["duration"] - 1.0) * 10.0) - 1
+    n_keep = 2 * LIVE_KEEP  # the replay's last 10 frames' gate/Gram calls
+    table = {"dryrun": (dryrun.dryrun_rank, (), None),
+             "dryrun_recorded": (recorded, (dryrun.dryrun_rank, 4, 1), None),
+             "next_frame": (dryrun_next_frame, (), None),
+             "replay": (recorded, (batch_replay.replay_rank, n_keep, 0), C5),
+             "lone": (replay_unpaired, (), C5_ONE), "pair": (batch_replay.replay_rank, (), C5_ONE),
+             "scaling": (scaling.measure_rank, (), None)}
+    worlds = {}
+    t0 = time.perf_counter()
+    for world, jobs in ((4, ("dryrun_recorded", "next_frame", "replay", "scaling")),
+                        (2, ("dryrun", "scaling")),
+                        (1, ("replay", "lone", "pair", "pair", "lone", "scaling"))):
+        t1 = time.perf_counter()
+        res = run_rank_jobs([table[j] for j in jobs], world, device="cuda", timeout=600.0)
+        worlds[world] = {}
+        for i, j in enumerate(jobs):
+            worlds[world].setdefault(j, []).append([r[i] for r in res])
+        print(f"distributed: world {world} ({', '.join(jobs)}) in "
+              f"{time.perf_counter() - t1:.1f} s, process start included")
+
+    out = {"launches": {}, "kernels": {}}
+    # (a) the dry run
+    dry = {2: worlds[2]["dryrun"][0], 4: [r[0] for r in worlds[4]["dryrun_recorded"][0]]}
+    for world in (2, 4):
+        ranks = dry[world]
+        s, f = ranks[0]["step"], ranks[0]["frame"]
+        for r in ranks:
+            want = ({"lk_pyramid": 0, "msckf_gram_gate": 2}, {"lk_pyramid": 1, "msckf_gram_gate": 2})
+            got = (r["step"]["launches"], r["frame"]["launches"])
+            if got != want:
+                raise AssertionError(f"dry run, world {world}, rank {r['step']['rank']}: "
+                                     f"launches {got}, want {want}")
+            if r["step"]["device"] != str(dev) or r["step"]["backend"] != "gloo":
+                raise AssertionError(f"dry run rank on {r['step']['device']} over "
+                                     f"{r['step']['backend']}")
+        print(f"dryrun_multichip({world}) on the card: agg {s['agg']}, |dp| {s['dp']:.3e}, "
+              f"|dcov| {s['dcov']:.3e}, bit for bit {s['bitwise']}; fused frame tracked "
+              f"{f['tracked']}, |dp| {f['dp']:.3e}, bit for bit {f['bitwise']}; backend "
+              f"{s['backend']}, launches per rank: step {s['launches']}, frame {f['launches']}")
+        out[f"dryrun_{world}"] = {"step_bitwise": s["bitwise"], "frame_bitwise": f["bitwise"],
+                                  "dp": s["dp"], "dcov": s["dcov"], "frame_dp": f["dp"]}
+    for k in ("msckf_gram_gate", "lk_pyramid"):
+        out["launches"][("sharded_step", k)] = sum(
+            r["step"]["launches"][k] for w in (2, 4) for r in dry[w])
+        out["launches"][("dryrun_fused_frame", k)] = sum(
+            r["frame"]["launches"][k] for w in (2, 4) for r in dry[w])
+
+    def shape(args):
+        return "x".join(str(n) for n in args[0].shape)
+
+    # the kernels on the dry run's own arguments (world 4): the calls of the step and
+    # frame accept all or none of their few features, so no mix is asked of them
+    calls = on_card(worlds[4]["dryrun_recorded"][0][1][1], dev)["gram_gate"]
+    if len(calls) != 4:
+        raise AssertionError(f"dry run rank 1 recorded {len(calls)} gate/Gram calls, want 4")
+    for name, args in zip(("sharded_step_points", "sharded_step_lines", "sharded_frame_points",
+                           "sharded_frame_lines"), calls):
+        out["kernels"][name] = phase_gram(f"dry run (world 4, rank 1), {name.replace('_', ' ')} "
+                                          f"{shape(args)}", args, mixed=False)
+    tracked, cap = worlds[4]["next_frame"][0][0]
+    out["kernels"]["next_frame_lk"] = phase_lk(
+        f"dry run's next frame (world 4, rank 0, tracked {tracked})", on_card(cap["lk"], dev))
+
+    # (b) the worker, one process per rank, as a user starts it
+    with tempfile.TemporaryDirectory() as tmp:
+        init = (Path(tmp) / "rendezvous").as_uri()
+        cmd = [sys.executable, "-m", "plviwo_tpu_torch.parallel.multiproc_worker"]
+        procs = [subprocess.Popen(cmd + [str(r), "2", init], cwd=Path(__file__).resolve().parent,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            outs = [(p.communicate(timeout=300)[0], p.returncode) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for text, rc in outs:
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        if rc != 0 or not lines:
+            raise AssertionError(f"multiproc_worker exited {rc}: {text[-2000:]}")
+        w = json.loads(lines[-1])
+        if not (w["max_abs_dp"] < 1e-9 and w["accepted"] > 0 and w["device"] == str(dev)):
+            raise AssertionError(f"multiproc_worker: {w}")
+        print(f"multiproc_worker rank {w['pid']} of {w['global_devices']}: accepted "
+              f"{w['accepted']}, rows {w['rows']}, |dp| {w['max_abs_dp']:.3e}, bit for bit "
+              f"{w['shard_equal']}, backend {w['backend']} on {w['device']}")
+
+    # (c) config 5 at 4 ranks against 1
+    ((rep4, traj4), cap4), ((rep1, traj1), cap1) = (worlds[n]["replay"][0][0] for n in (4, 1))
+    dtraj = float(np.max(np.abs(traj4 - traj1)))
+    if not dtraj < 1e-9:
+        raise AssertionError(f"config 5: 4 ranks and 1 rank differ by {dtraj:.3e} m")
+    want = {"lk_pyramid": 0, "msckf_gram_gate": 2 * n_frames}
+    for rep in (rep4, rep1):
+        seqs = rep["sequences"]
+        if not (rep["accepted"] > 200 and rep["lines_accepted"] > 40 and len(seqs) == 4):
+            raise AssertionError(f"config 5 at {rep['devices']} ranks: {rep}")
+        for s, jax_ate in zip(seqs, C5_JAX_ATE_BEFORE):
+            g = s["ba_gain"]
+            ok = (s["ate_before_m"] < 1.0 and s["ate_before_m"] < 1.5 * jax_ate
+                  and s["ate_after_m"] is not None
+                  and s["ate_after_m"] <= 1.15 * s["ate_before_kf_m"] and g[-1] < 1e-2 * g[0])
+            if not ok:
+                raise AssertionError(f"config 5 at {rep['devices']} ranks: {s} (JAX's "
+                                     f"ate_before_m {jax_ate})")
+        if any(n != want for n in rep["launches_per_rank"]):
+            raise AssertionError(f"config 5: launches per rank {rep['launches_per_rank']}, "
+                                 f"want {want}")
+
+    def ates(rep):
+        return [f"{s[k]:.6f}" for s in rep["sequences"]
+                for k in ("ate_before_m", "ate_before_kf_m", "ate_after_m")]
+
+    if ates(rep4) != ates(rep1):
+        raise AssertionError(f"config 5 ATEs differ: {ates(rep4)} vs {ates(rep1)}")
+    for rep in (rep4, rep1):
+        print(f"config 5 at {rep['devices']} rank(s), backend {rep['backend']} on "
+              f"{rep['device']}: accepted {rep['accepted']}, lines {rep['lines_accepted']}; "
+              f"ATE before / before (keyframes) / after BA: " + "; ".join(
+                  f"{s['ate_before_m']:.6f} / {s['ate_before_kf_m']:.6f} / "
+                  f"{s['ate_after_m']:.6f} m" for s in rep["sequences"])
+              + f" (JAX before: {', '.join(f'{a:.6f}' for a in C5_JAX_ATE_BEFORE)}); replay "
+              f"{rep['replay_s']:.3f} s for {n_frames} frames; BA ms a sequence "
+              + ", ".join(f"{s['ba_ms']:.3f}" for s in rep["sequences"])
+              + f"; launches per rank {rep['launches_per_rank']}")
+    print(f"config 5: 4 ranks vs 1 rank, max |dp| over the trajectories {dtraj:.3e} m")
+    for k in ("msckf_gram_gate", "lk_pyramid"):
+        out["launches"][("batch_replay", k)] = sum(
+            r[k] for rep in (rep4, rep1) for r in rep["launches_per_rank"])
+    # gate/Gram on the replay's own arguments: a rank's pair (4 ranks) and B = 4 (1 rank)
+    for tag, cap in (("4_ranks", cap4), ("1_rank", cap1)):
+        calls = on_card(cap["gram_gate"], dev)
+        for what, kept in (("points", calls[0::2]), ("lines", calls[1::2])):
+            back, args = newest_mixed(kept)
+            out["kernels"][f"config5_{tag}_{what}"] = phase_gram(
+                f"config 5 at {tag.replace('_', ' ')}, frame (last - {back}), {what} "
+                f"{shape(args)}", args)
+    out["c5"] = {"replay_s": {n: rep["replay_s"] for n, rep in ((4, rep4), (1, rep1))},
+                 "ba_ms": [s["ba_ms"] for s in rep4["sequences"]], "dtraj": dtraj}
+
+    # what the pairing costs: one sequence at 1 rank, alone and as a pair
+    lone, pair = ([r[0] for r in worlds[1][j]] for j in ("lone", "pair"))
+    d_pair = max(float(np.max(np.abs(tp[0] - traj4[0]))) for _, tp in pair)
+    if not d_pair < 1e-9:
+        raise AssertionError(f"config 5's sequence 0 as a pair at 1 rank and at 4 ranks differ "
+                             f"by {d_pair:.3e} m")
+    d_lone = max(float(np.max(np.abs(tp[0] - traj4[0]))) for _, tp in lone)
+    t_lone, t_pair = ([rep["replay_s"] for rep, _ in runs] for runs in (lone, pair))
+    ratio = sum(t_pair) / sum(t_lone)
+    print(f"config 5's sequence 0 at 1 rank ({n_frames} frames), lone, pair, pair, lone: "
+          f"replay {t_lone[0]:.3f}, {t_pair[0]:.3f}, {t_pair[1]:.3f}, {t_lone[1]:.3f} s; pair "
+          f"/ lone {ratio:.3f}; the pair's trajectory {d_pair:.3e} m from the 4-rank run's, "
+          f"the lone one's {d_lone:.3e} m; launches lone {lone[0][0]['launches_per_rank']}, "
+          f"pair {pair[0][0]['launches_per_rank']}")
+    out["pairing"] = {"lone_s": t_lone, "pair_s": t_pair, "ratio": ratio, "d_lone": d_lone}
+
+    # (d) scaling, with the same total batch unsharded in this process
+    # (the slowest rank's rate is the batch's, as `scaling.measure` takes it)
+    fps = {n: min(r[0] for r in worlds[n]["scaling"][0]) for n in (1, 2, 4)}
+    rows = [scaling.weak_row(n, 4, fps[n], scaling.measure(n, solo=True, device=dev)[0], fps[1],
+                             worlds[n]["scaling"][0][0][1]) for n in (1, 2, 4)]
+    for r in rows:
+        if not all(math.isfinite(r[k]) and r[k] > 0 for k in r if k != "backend"):
+            raise AssertionError(f"scaling: {r}")
+    print("scaling (" + scaling.shared_note(dev, 4) + "): " + json.dumps(rows))
+    out["scaling"] = rows
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2548,6 +2839,8 @@ def main() -> int:
     tags = phase_tags(dev)
     desc = phase_desc_tracker(dev)
     record = phase_record_viz_eval(dev)
+    distributed = phase_distributed(dev)
+    dist_checks = distributed["kernels"]
     print(f"tags, descriptors, record/viz/eval/checkpoint on {card}: tags ATE {tags['ate']} m, "
           f"NCC {tags['ncc_ms']:.3f} ms and detector {tags['detect_ms']:.3f} ms a 640 x 480 "
           f"frame; descriptor tracker {desc['tracker_p50_ms']:.3f} ms a frame (p50), RMSE "
@@ -2589,7 +2882,8 @@ def main() -> int:
          "launches": img_launches["msckf_gram_gate"],
          "max_abs_err": max(g["max_abs_err"] for g in
                             gram_filter + gram_img + gram_frame + gram_live + gram_drv
-                            + gram_stereo + [v for k, v in new_paths.items() if "lk" not in k]),
+                            + gram_stereo + [v for k, v in new_paths.items() if "lk" not in k]
+                            + [v for k, v in dist_checks.items() if "lk" not in k]),
          "ms": gram_img_sum["ms"], "plain_ms": gram_img_sum["plain_ms"],
          "bound_ms": gram_img_sum["bound_ms"], "bound_by": gram_img_sum["bound_by"],
          "library_ms": None, "per": "images-in frame: points (k=3) + lines (k=4) calls",
@@ -2603,11 +2897,14 @@ def main() -> int:
                               "images_in_dynamic": dyn_launches["msckf_gram_gate"],
                               "live_driver_dynamic": ldyn_launches["msckf_gram_gate"],
                               "live_driver_stereo": lst_launches["msckf_gram_gate"],
-                              "per_track": track_launches["msckf_gram_gate"]},
+                              "per_track": track_launches["msckf_gram_gate"],
+                              **{path: distributed["launches"][(path, "msckf_gram_gate")]
+                                 for path in DISTRIBUTED_PATHS}},
          "stereo_shapes": {name: times(g) for name, g in zip(("images_in_d147_m32",
                                                                "live_driver_d127_m48"),
                                                               gram_stereo)},
          "new_paths": {k: times(v) for k, v in new_paths.items() if "lk" not in k},
+         "distributed_paths": {k: times(v) for k, v in dist_checks.items() if "lk" not in k},
          "live_driver_b1": {name: times(g) for name, g in zip(("points", "lines"), gram_live)},
          "driver_shapes_d116": {name: times(g) for name, g in zip(("points", "lines"), gram_drv)},
          "filter_only_shapes": per_frame(gram_filter),
@@ -2617,7 +2914,8 @@ def main() -> int:
          "replaces": "plviwo_tpu/ops/lk_kernel.py:141",
          "launches": img_launches["lk_pyramid"],
          "max_abs_err": max(lk["max_abs_err"], lk_frame["max_abs_err"], lk_live["max_abs_err"],
-                            new_paths["stereo_frame_lk_lr"]["max_abs_err"]),
+                            new_paths["stereo_frame_lk_lr"]["max_abs_err"],
+                            dist_checks["next_frame_lk"]["max_abs_err"]),
          "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
          "bound_by": lk["bound_by"], "library_ms": None,
          "launches_by_path": {"images_in": img_launches["lk_pyramid"],
@@ -2631,9 +2929,12 @@ def main() -> int:
                               "host_tracker": tracker_launches,
                               "host_line_tracker": sum(r["launches"]["lk_pyramid"]
                                                        for r in line_trackers.values()),
-                              "kaist_replay": kaist_replay["launches"]["lk_pyramid"]},
+                              "kaist_replay": kaist_replay["launches"]["lk_pyramid"],
+                              **{path: distributed["launches"][(path, "lk_pyramid")]
+                                 for path in DISTRIBUTED_PATHS}},
          "live_driver_b1": times(lk_live),
          "stereo_frame_lr": times(new_paths["stereo_frame_lk_lr"]),
+         "dryrun_next_frame": times(dist_checks["next_frame_lk"]),
          "captured_frame": times(lk_frame)}
     ]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to end")

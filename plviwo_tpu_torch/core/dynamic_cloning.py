@@ -8,10 +8,10 @@ recent angular and linear acceleration, the lowest clone rate whose
 interpolation error stays under a target, and that error as a noise
 standard deviation,
 
-    slope(hz, order) ~ C_order * (1 / hz)^order.
+    slope(hz, order) ~ C_order * (1 / hz)^order,
 
-The JAX module's `set_slope_table` (measured slope tables in place of the
-parametric model) is not copied: nothing in the port sets one.
+or a measured slope table installed with `set_slope_table` (the
+reference's calibrate-then-load workflow of its YAML slope tables).
 """
 
 from __future__ import annotations
@@ -21,7 +21,19 @@ import numpy as np
 AVAILABLE_HZ = (4, 5, 7, 10, 15, 20, 30)
 C_ORDER = {1: 0.5, 3: 0.15, 5: 0.05}
 
+_custom_table: dict | None = None
+
+
+def set_slope_table(table: dict | None):
+    """table[(hz, order)] = slope (empirically calibrated), consulted before
+    the parametric model; None removes it.  Process-wide, as in JAX."""
+    global _custom_table
+    _custom_table = table
+
+
 def slope(hz: float, order: int) -> float:
+    if _custom_table is not None and (hz, order) in _custom_table:
+        return _custom_table[(hz, order)]
     c = C_ORDER.get(order, 0.15)
     return c * (1.0 / hz) ** order
 

@@ -39,10 +39,13 @@ def ekf_update(cov, H, r, r_diag, mask):
     Rm = torch.where(mask, r_diag, 1.0)
     PHt = cov @ Hm.transpose(-1, -2)  # (B,D,M)
     S = _sym(Hm @ PHt + torch.diag_embed(Rm))
-    Kt = solve_psd(S, PHt.transpose(-1, -2))  # (B,M,D)
-    dx = (Kt.transpose(-1, -2) @ rm[..., None])[..., 0]
-    new_cov = cov - PHt @ Kt
-    return dx, _sym(new_cov)
+    # Y = S^-1 [PHt^T | r] in one solve, then PHt Y = [K H P | dx] in one
+    # matrix-matrix product: a separate matrix-vector product for dx sums in
+    # another order at B = 1 than at B > 1 on the CPU
+    Y = solve_psd(S, torch.cat([PHt.transpose(-1, -2), rm[..., None]], dim=-1))  # (B,M,D+1)
+    P = PHt @ Y
+    D = cov.shape[-1]
+    return P[..., D], _sym(cov - P[..., :D])
 
 
 def whiten(H, r, R_full):
@@ -182,6 +185,25 @@ def marginalize_slam_slot(state: FilterState, slot) -> FilterState:
         slam_id=torch.where(sel, -1, state.slam_id),
         cov=torch.where(band[:, :, None] | band[:, None, :], 0.0, state.cov),
     )
+
+
+def nullspace_project(Hf, Hx, r):
+    """Project per-feature linear systems onto the left nullspace of Hf.
+
+    Hf (B,M,k) feature Jacobians, Hx (B,M,D), r (B,M).  Returns (Hx' (B,M,D),
+    r' (B,M), row_valid (B,M) bool): a complete QR of Hf gives Q, the system
+    is left-multiplied by Q^T, and the M - k rows of the nullspace part are
+    rolled to the top, the k rows of Hf's range (invalid) to the bottom, so
+    the output keeps its fixed size (reference: in-place Givens,
+    StateHelper.cpp:616-629).  No ported path calls it: the gate/Gram kernel
+    projects with its own reflectors."""
+    M, k = Hf.shape[-2:]
+    Q, _ = torch.linalg.qr(Hf, mode="complete")  # (B,M,M)
+    Qt = Q.transpose(-1, -2)
+    Hx2 = torch.roll(Qt @ Hx, -k, dims=-2)
+    r2 = torch.roll((Qt @ r[..., None])[..., 0], -k, dims=-1)
+    valid = torch.roll(torch.arange(M, device=Hf.device) >= k, -k).expand(r2.shape)
+    return Hx2, r2, valid
 
 
 def measurement_compress(H, r, mask):

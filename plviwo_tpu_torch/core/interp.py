@@ -12,8 +12,9 @@ takes those Jacobians by `jax.jacfwd`; here they are written in closed form
 (`interpolate_rotation_jacobian`, `_poly_jacobian`), since a forward-mode
 pass through `log_so3` and `exp_so3` costs hundreds of host operators a
 call.  `build_cpi_table` is the IMU-preintegrated alternative to the
-polynomial table (`use_imu_res`), with the same row format;
-`bounding_clones` has no caller on a ported path.
+polynomial table (`use_imu_res`), with the same row format.
+`bounding_clones` has no caller on a ported path (the rows find their
+clones with `core/step._bound_times`).
 """
 
 from __future__ import annotations
@@ -226,3 +227,24 @@ def build_cpi_table(clone_q, clone_p, clone_q_fej, clone_p_fej, anchor_slot, anc
     v_t = anchor_v - gravity * dtc + (RaT @ beta[..., None])[..., 0]
     Jt = torch.cat([w_tau, v_t], dim=-1)
     return lie.rot_2_quat(R_t), p_t, lie.rot_2_quat(R_tf), p_tf, tJ, Jt
+
+
+def bounding_clones(clone_t, clone_valid, t):
+    """Slots of the clones bounding times t (B,) among clone_t / clone_valid
+    (B,C) (masked argmax / argmin, first index among ties).
+
+    Returns (slot0, slot1, lam, ok), each (B,): t(slot0) <= t <= t(slot1);
+    when t matches a clone exactly, slot0 == slot1 and lam == 0."""
+    t = t[..., None]
+    t_arr = torch.where(clone_valid, clone_t, torch.inf)
+    older = torch.where(t_arr <= t, t_arr, -torch.inf)
+    slot0 = torch.argmax(older, dim=-1)
+    t0 = torch.gather(older, -1, slot0[..., None])[..., 0]
+    newer = torch.where(t_arr >= t, t_arr, torch.inf)
+    slot1 = torch.argmin(newer, dim=-1)
+    t1 = torch.gather(newer, -1, slot1[..., None])[..., 0]
+    t = t[..., 0]
+    ok = torch.isfinite(t0) & torch.isfinite(t1)
+    denom = torch.where(t1 > t0, t1 - t0, torch.ones_like(t))
+    lam = torch.where(t1 > t0, (t - t0) / denom, torch.zeros_like(t))
+    return slot0, slot1, lam, ok

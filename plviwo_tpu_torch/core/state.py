@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops import lie
 from .layout import StateLayout
 
 F64 = torch.float64
@@ -43,6 +44,7 @@ _RANK = {
     "cov": 2,
 }
 _BOOL = ("clone_valid", "clone_keyframe", "slam_valid")
+FIELDS = tuple(_RANK)  # the tensor fields, in the JAX FilterState's order
 
 
 @dataclasses.dataclass
@@ -175,6 +177,18 @@ def make_state(layout: StateLayout, priors: dict | None = None, batch: int = 1,
     return FilterState.from_numpy([one] * batch, layout, device)
 
 
+def rot_gtoi(state: FilterState):
+    """(B,3,3) R_GtoI of the IMU orientation."""
+    return lie.quat_2_rot(state.q)
+
+
+def oldest_clone_slot(state: FilterState):
+    """(B,) slot of the oldest valid, non-keyframe clone (+inf-masked argmin,
+    first index among ties)."""
+    t = torch.where(state.clone_valid & ~state.clone_keyframe, state.clone_t, torch.inf)
+    return torch.argmin(t, dim=-1)
+
+
 def newest_clone_slot(state: FilterState):
     """(B,) slot of the newest valid clone (first index among ties)."""
     t = torch.where(state.clone_valid, state.clone_t, -torch.inf)
@@ -184,3 +198,8 @@ def newest_clone_slot(state: FilterState):
 def free_clone_slot(state: FilterState):
     """(B,) slot of the first invalid clone."""
     return torch.argmin(state.clone_valid.to(torch.int8), dim=-1)
+
+
+def num_clones(state: FilterState):
+    """(B,) number of valid clones."""
+    return torch.sum(state.clone_valid, dim=-1)

@@ -21,8 +21,10 @@ from . import cuda_lib
 F32 = torch.float32
 
 
-def gram_gate_plain(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap):
-    """Plain PyTorch version of the kernel (same arguments as `gram_gate`)."""
+def gate_rows(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap):
+    """The plain version's rows and gate (same arguments as `gram_gate`):
+    (Hv (B,F,M,D), rv (B,F,M): the whitened rows projected onto Hf's left
+    nullspace, the first k rows zero; ok (B,F); chi2 (B,F))."""
     B, F, M, D = Hx.shape
     k = Hf.shape[-1]
     m = rowmask[..., None]
@@ -57,11 +59,21 @@ def gram_gate_plain(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap):
     dof = torch.clamp(n_rows - k, min=1, max=gate_pad.shape[0] - 1)
     cap = torch.tensor(resid_cap, dtype=F32, device=Hx.device)
     ok = (chi2 < gate_pad[dof]) & (n_rows >= k + 2) & (raw_max < cap)
+    return Hv, rv, ok, chi2
 
-    Hok = torch.where(ok[..., None, None], Hv, 0.0)
-    rok = torch.where(ok[..., None], rv, 0.0)
-    G = torch.einsum("bfmd,bfme->bde", Hok, Hok)
-    c = torch.einsum("bfmd,bfm->bd", Hok, rok)
+
+def gram_gate_plain(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap):
+    """Plain PyTorch version of the kernel (same arguments as `gram_gate`)."""
+    Hv, rv, ok, chi2 = gate_rows(Hx, Hf, r, rowmask, w, cov, gate_vec, resid_cap)
+    D = Hx.shape[-1]
+    # [Hv | rv] of the accepted features in one product: G and c come out of
+    # one matrix-matrix product per sequence.  On the CPU a separate
+    # matrix-vector product for c sums in another order at B = 1 than at
+    # B > 1, the one product not at the distributed layer's shapes (at F =
+    # 128 neither form keeps it: `batch_invariance.py --device cpu`)
+    Aok = torch.where(ok[..., None, None], torch.cat([Hv, rv[..., None]], dim=-1), 0.0)
+    Gc = torch.einsum("bfmd,bfme->bde", Aok, Aok[..., :D])
+    G, c = Gc[:, :D], Gc[:, D]
     return G, c, ok, chi2
 
 

@@ -138,6 +138,51 @@ def _yaw_rot(yaw):
                         torch.stack([z, z, o], -1)], -2)
 
 
+def transform_state_to_enu(state, R_WtoE, p_WinE):
+    """Rotate the whole filter state (means + covariance) from W to ENU by a
+    known transform, without the transform's marginalization (reference:
+    transform_state_to_ENU, UpdaterGPS.cpp:457-516).  R_WtoE (B,3,3),
+    p_WinE (B,3).  No ported path calls it: the GPS init rotates through
+    `transform_state_to_enu_marg_trans`.
+
+    q_GtoI -> q_GtoI (x) q(R_WtoE^T) leaves the JPL (local) attitude error
+    untouched; positions, velocities and landmarks rotate, so J carries R on
+    their blocks and the identity elsewhere.  As in the JAX package, every
+    SLAM slot rotates and only the valid ones take the translation."""
+    lo = state.layout
+    B, D = state.batch, lo.dim
+    R = torch.as_tensor(R_WtoE, dtype=F64, device=state.cov.device).expand(B, 3, 3)
+    t = torch.as_tensor(p_WinE, dtype=F64, device=state.cov.device).expand(B, 3)
+    q_rot = lie.rot_2_quat(R.transpose(-1, -2))
+
+    def rot_q(q):  # q (B,4) or (B,n,4)
+        return lie.quat_multiply(q, q_rot.view((B,) + (1,) * (q.ndim - 2) + (4,)))
+
+    def rot_v(v):
+        return (R.view((B,) + (1,) * (v.ndim - 2) + (3, 3)) @ v[..., None])[..., 0]
+
+    def rot_p(p):
+        return rot_v(p) + t.view((B,) + (1,) * (p.ndim - 2) + (3,))
+
+    t_slam = torch.where(state.slam_valid[..., None], t[:, None, :], 0.0)
+    new = state.replace(
+        q=rot_q(state.q), q_fej=rot_q(state.q_fej),
+        p=rot_p(state.p), p_fej=rot_p(state.p_fej),
+        v=rot_v(state.v), v_fej=rot_v(state.v_fej),
+        clone_q=rot_q(state.clone_q), clone_q_fej=rot_q(state.clone_q_fej),
+        clone_p=rot_p(state.clone_p), clone_p_fej=rot_p(state.clone_p_fej),
+        slam_p=rot_v(state.slam_p) + t_slam,
+        slam_p_fej=rot_v(state.slam_p_fej) + t_slam,
+    )
+    J = torch.eye(D, dtype=F64, device=t.device).repeat(B, 1, 1)
+    blocks = [lo.IMU_P, lo.IMU_V] + [lo.clone(i) + 3 for i in range(lo.n_clones)] + [
+        lo.slam(i) for i in range(lo.max_slam)]
+    for s in blocks:
+        J[:, s:s + 3, s:s + 3] = R
+    cov = J @ state.cov @ J.transpose(-1, -2)
+    return new.replace(cov=0.5 * (cov + cov.transpose(-1, -2)))
+
+
 def transform_state_to_enu_marg_trans(state):
     """Rotate the whole state by its estimated `trans_WtoE` and marginalize
     the transform (reference: transform_state_to_ENU, UpdaterGPS.cpp:457-516).

@@ -15,7 +15,8 @@ max|dp| < 1e-5 and max|dcov| < 1e-4 max|cov|; the LK kernel `ok` equal on
 max < 0.05 px (the bounds of tests/test_lk_kernel.py: the kernel's samples
 equal the plain version's, its warp sums take another order); the gather LK
 `ok` equal and pixels within 1e-3 px of the CPU's; the tag detector's
-detections equal to the CPU's and corners within 1e-3 px.
+detections equal to the CPU's and corners within 1e-3 px; the sharded full
+step on two ranks that share the card within 1e-9 of one process.
 """
 
 import numpy as np
@@ -730,3 +731,19 @@ def test_tag_detector_on_the_card_matches_the_cpu(cuda_device):
         np.testing.assert_array_equal(got["tag_id"][ok], want["tag_id"][ok])
         assert sorted(int(t) for t in got["tag_id"][ok]) == sorted(t[0] for t in tags)
         np.testing.assert_allclose(got["corners"][ok], want["corners"][ok], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sharded_full_step_two_ranks_on_one_card(cuda_device):
+    """Two ranks share the card over Gloo: the sharded full step within 1e-9
+    of one process (`dryrun.dryrun_step` raises otherwise), each rank's shard
+    on the card with its 2 gate/Gram launches (points, lines)."""
+    from plviwo_tpu_torch.parallel import dryrun
+    from plviwo_tpu_torch.parallel.replay import run_ranks
+
+    res = run_ranks(dryrun.dryrun_step, 2, device="cuda", timeout=300.0)
+    assert res[0]["dp"] < 1e-9 and res[0]["dcov"] < 1e-9
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == str(cuda_device)
+        assert r["launches"] == {"lk_pyramid": 0, "msckf_gram_gate": 2}
+        assert r["agg"]["accepted"] > 0 and r["agg"]["lines_accepted"] > 0

@@ -175,7 +175,7 @@ def test_port_imports_no_jax():
         "import plviwo_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, gram_gate_ab, lk_ab, store_ab\n"
+        "import batch_invariance, chip_smoke, gram_gate_ab, lk_ab, store_ab\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax')))\n"
         "assert not bad, bad\n"
         "ref = sorted(m for m in sys.modules if m == 'plviwo_tpu' or m.startswith('plviwo_tpu.'))\n"
