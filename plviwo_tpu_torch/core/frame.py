@@ -29,6 +29,13 @@ lines keep the slot liveness test.  With both flags on the dynamic rows
 win and the right observations go unused, as in the JAX package.  The
 pyramid has the JAX package's fixed three levels.  Nothing in a frame
 reads a value back to the host; metrics are (B,) tensors.
+
+Stage spans (`utils/timing.span`, recorded only under a profiler): `frame`
+around the call, tiled by `frame.time_update` (propagate, marginalize,
+clone, the dynamic select), `frame.frontend` (`track_frame`, with
+`frame.frontend.lines` around its line branch), `frame.rows` (liveness and
+every row, the gate/Gram kernel included) and `frame.update` (compression
+and the EKF update).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..ops import image as image_ops
 from ..ops import klt as klt_ops
 from ..ops import line_detect, lk_kernel
 from ..update import wheel as wheel_up
+from ..utils.timing import span
 from . import ekf, propagator
 from .state import CUDA, FilterState, checked_device, newest_clone_slot
 from .step import (_auto_marginalize, _camera_msckf_rows, _camera_msckf_rows_interp,
@@ -434,20 +442,21 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
     if lines:
         # ---- lines: detect at half resolution (FLD on pyrDown in the
         # reference), coordinates x2; match to last frame's lines; fill slots ----
-        segs_h, _, cand_ok = line_detect.detect_segments_runlen(pyr[1])
-        ls = _line_slots(ts, segs_h, cand_ok, uv_all, valid_all, alive)
-        # one undistort for the point slots and the line endpoints (per
-        # point, so it equals JAX's three calls; lseg_all equals lseg_cur
-        # where l_alive)
-        zn = cam_ops.undistort(torch.cat([uv_all, ls.lseg_all.reshape(B, 2 * Lm, 2)], dim=1)
-                               .to(F64), kb, cam_model)
-        zn_new, lseg_n = zn[:, :N], zn[:, N:].reshape(B, Lm, 4)
-        lhist, line_harvest, lattach = _line_histories(ts, ls, lseg_n, uv_all, valid_all, t_new,
-                                                       slot_new)
-        fields = dict(
-            lseg=ls.lseg_all.to(F32), lvalid=ls.l_alive | ls.lfilled, lattach=lattach,
-            lhist_uv=lhist[0], lhist_uvn=lhist[1], lhist_t=lhist[2], lhist_slot=lhist[3],
-            l_nobs=lhist[4])
+        with span("frame.frontend.lines"):
+            segs_h, _, cand_ok = line_detect.detect_segments_runlen(pyr[1])
+            ls = _line_slots(ts, segs_h, cand_ok, uv_all, valid_all, alive)
+            # one undistort for the point slots and the line endpoints (per
+            # point, so it equals JAX's three calls; lseg_all equals lseg_cur
+            # where l_alive)
+            zn = cam_ops.undistort(torch.cat([uv_all, ls.lseg_all.reshape(B, 2 * Lm, 2)], dim=1)
+                                   .to(F64), kb, cam_model)
+            zn_new, lseg_n = zn[:, :N], zn[:, N:].reshape(B, Lm, 4)
+            lhist, line_harvest, lattach = _line_histories(ts, ls, lseg_n, uv_all, valid_all,
+                                                           t_new, slot_new)
+            fields = dict(
+                lseg=ls.lseg_all.to(F32), lvalid=ls.l_alive | ls.lfilled, lattach=lattach,
+                lhist_uv=lhist[0], lhist_uvn=lhist[1], lhist_t=lhist[2], lhist_slot=lhist[3],
+                l_nobs=lhist[4])
     else:
         zn_new = cam_ops.undistort(uv_all.to(F64), kb, cam_model)
         line_harvest, fields = None, {}
@@ -521,75 +530,80 @@ def fused_frame(state: FilterState, ts: TrackState, img,
     only where do_clone.  use_stereo: img_r (B,H,W) the right image, camera
     1 of the state (camera 0 where it has one camera).  lk_conv=False
     tracks with the gather LK instead of the LK kernel (`track_frame`)."""
-    # --- filter time update ---
-    state = propagator.propagate(state, imu_t, imu_w, imu_a, t_new, gravity, sigmas)
-    state_m = _auto_marginalize(state, t_new, window_size)
-    slot0 = newest_clone_slot(state_m)  # wheel interval start clone
-    state_c = ekf.augment_clone(state_m)
-    slot1 = newest_clone_slot(state_c)  # the clone just inserted
-    # dynamic cloning: marginalize + clone under the per-sequence mask (the
-    # slots are the cloned variant's, as in JAX)
-    state = _select(do_clone, state_c, state) if use_dynamic else state_c
+    with span("frame"):
+        # --- filter time update ---
+        with span("frame.time_update"):
+            state = propagator.propagate(state, imu_t, imu_w, imu_a, t_new, gravity, sigmas)
+            state_m = _auto_marginalize(state, t_new, window_size)
+            slot0 = newest_clone_slot(state_m)  # wheel interval start clone
+            state_c = ekf.augment_clone(state_m)
+            slot1 = newest_clone_slot(state_c)  # the clone just inserted
+            # dynamic cloning: marginalize + clone under the per-sequence mask
+            # (the slots are the cloned variant's, as in JAX)
+            state = _select(do_clone, state_c, state) if use_dynamic else state_c
 
-    # --- front-end ---
-    n_cams = state.cam_k.shape[1]
-    ts, point_harvest, line_harvest = track_frame(
-        ts, img, state.cam_k[:, 0], t_new, slot1, half=half, iters=iters, grid_x=grid_x,
-        grid_y=grid_y, min_px_dist=min_px_dist, min_track=min_track, cam_model=model,
-        lines=use_lines, img_r=img_r if use_stereo else None,
-        cam_k_r=state.cam_k[:, 1 % n_cams], lk_conv=lk_conv)
-    p_uv, p_uvn, p_slot, p_mask, p_t = point_harvest[:5]
-    if not use_dynamic:
-        # dynamic: observations are resolved by time in the row builder
-        p_mask = _liveness(state, p_slot, p_t, p_mask)
-    p_mask = p_mask & (torch.sum(p_mask, dim=-1, keepdim=True) >= 3)
+        # --- front-end ---
+        with span("frame.frontend"):
+            n_cams = state.cam_k.shape[1]
+            ts, point_harvest, line_harvest = track_frame(
+                ts, img, state.cam_k[:, 0], t_new, slot1, half=half, iters=iters,
+                grid_x=grid_x, grid_y=grid_y, min_px_dist=min_px_dist, min_track=min_track,
+                cam_model=model, lines=use_lines, img_r=img_r if use_stereo else None,
+                cam_k_r=state.cam_k[:, 1 % n_cams], lk_conv=lk_conv)
 
-    # --- rows at the common pre-update state, summed and factored once ---
-    if use_dynamic:
-        G, c, metrics = _camera_msckf_rows_interp(state, p_uv, p_uvn, p_t, p_mask, sigma_pix,
-                                                  chi2_mult, model, cam_dtype)
-    elif use_stereo:
-        r_uv, r_uvn, r_mask = point_harvest[5:]
-        G, c, metrics = _camera_msckf_rows_stereo(state, p_uv, p_uvn, p_slot, p_mask, r_uv,
-                                                  r_uvn, r_mask & p_mask, sigma_pix, chi2_mult,
-                                                  model, cam_dtype)
-    else:
-        G, c, metrics = _camera_msckf_rows(state, p_uv, p_uvn, p_slot, p_mask, sigma_pix,
-                                           chi2_mult, model, cam_dtype)
-    none = torch.zeros_like(metrics["accepted"], dtype=torch.int32)
-    lines_accepted = wheel_accepted = gps_accepted = line_harvested = none
-    if use_lines:
-        l_uv, l_uvn, l_slot, l_mask, l_t = line_harvest
-        l_mask = _liveness(state, l_slot, l_t, l_mask)
-        l_mask = l_mask & (torch.sum(l_mask, dim=-1, keepdim=True) >= 3)
-        line_harvested = torch.sum(torch.any(l_mask, dim=-1), dim=-1)
-        G2, c2, lines_accepted = _line_msckf_rows(
-            state, l_uv.to(F64), l_uvn.to(F64), l_slot, l_mask, sigma_line, chi2_mult,
-            cam_dtype=cam_dtype)
-        G, c = G + G2, c + c2
-    if use_wheel:
-        # dynamic cloning: the interval is clone to clone, so rows land only
-        # on clone frames (the host's window spans the whole gap)
-        Hw, rw, mw, wheel_accepted = _wheel_rows(
-            state, slot0, slot1, wheel_t, wheel_m1, wheel_m2,
-            wheel_valid & do_clone if use_dynamic else wheel_valid, wheel_noise,
-            chi2_mult, wheel_type, preint_dtype=cam_dtype)
-        Gw, cw = _rows_to_gram(Hw, rw, mw)
-        G, c = G + Gw, c + cw
-    if use_gps:
-        Hg, rg, mg, gps_accepted = _gps_rows(state, gps_t, gps_p, gps_valid, sigma_gps,
-                                             gps_chi2_mult)
-        Gg, cg = _rows_to_gram(Hg, rg, mg)
-        G, c = G + Gg, c + cg
-    Hj, rj, mj = ekf.compress_from_gram(G, c)
-    state = ekf.update(state, Hj, rj, torch.ones_like(rj), mj)
+        # --- rows at the common pre-update state, summed and factored once ---
+        with span("frame.rows"):
+            p_uv, p_uvn, p_slot, p_mask, p_t = point_harvest[:5]
+            if not use_dynamic:
+                # dynamic: observations are resolved by time in the row builder
+                p_mask = _liveness(state, p_slot, p_t, p_mask)
+            p_mask = p_mask & (torch.sum(p_mask, dim=-1, keepdim=True) >= 3)
+            if use_dynamic:
+                G, c, metrics = _camera_msckf_rows_interp(state, p_uv, p_uvn, p_t, p_mask,
+                                                          sigma_pix, chi2_mult, model, cam_dtype)
+            elif use_stereo:
+                r_uv, r_uvn, r_mask = point_harvest[5:]
+                G, c, metrics = _camera_msckf_rows_stereo(state, p_uv, p_uvn, p_slot, p_mask,
+                                                          r_uv, r_uvn, r_mask & p_mask,
+                                                          sigma_pix, chi2_mult, model, cam_dtype)
+            else:
+                G, c, metrics = _camera_msckf_rows(state, p_uv, p_uvn, p_slot, p_mask, sigma_pix,
+                                                   chi2_mult, model, cam_dtype)
+            none = torch.zeros_like(metrics["accepted"], dtype=torch.int32)
+            lines_accepted = wheel_accepted = gps_accepted = line_harvested = none
+            if use_lines:
+                l_uv, l_uvn, l_slot, l_mask, l_t = line_harvest
+                l_mask = _liveness(state, l_slot, l_t, l_mask)
+                l_mask = l_mask & (torch.sum(l_mask, dim=-1, keepdim=True) >= 3)
+                line_harvested = torch.sum(torch.any(l_mask, dim=-1), dim=-1)
+                G2, c2, lines_accepted = _line_msckf_rows(
+                    state, l_uv.to(F64), l_uvn.to(F64), l_slot, l_mask, sigma_line, chi2_mult,
+                    cam_dtype=cam_dtype)
+                G, c = G + G2, c + c2
+            if use_wheel:
+                # dynamic cloning: the interval is clone to clone, so rows land
+                # only on clone frames (the host's window spans the whole gap)
+                Hw, rw, mw, wheel_accepted = _wheel_rows(
+                    state, slot0, slot1, wheel_t, wheel_m1, wheel_m2,
+                    wheel_valid & do_clone if use_dynamic else wheel_valid, wheel_noise,
+                    chi2_mult, wheel_type, preint_dtype=cam_dtype)
+                Gw, cw = _rows_to_gram(Hw, rw, mw)
+                G, c = G + Gw, c + cw
+            if use_gps:
+                Hg, rg, mg, gps_accepted = _gps_rows(state, gps_t, gps_p, gps_valid, sigma_gps,
+                                                     gps_chi2_mult)
+                Gg, cg = _rows_to_gram(Hg, rg, mg)
+                G, c = G + Gg, c + cg
+        with span("frame.update"):
+            Hj, rj, mj = ekf.compress_from_gram(G, c)
+            state = ekf.update(state, Hj, rj, torch.ones_like(rj), mj)
 
-    metrics = dict(metrics)
-    metrics["lines_accepted"] = lines_accepted
-    metrics["wheel_accepted"] = wheel_accepted
-    metrics["gps_accepted"] = gps_accepted
-    metrics["tracked"] = torch.sum(ts.valid, dim=-1)
-    metrics["line_tracked"] = torch.sum(ts.lvalid, dim=-1)
-    metrics["harvested"] = torch.sum(torch.any(p_mask, dim=-1), dim=-1)
-    metrics["line_harvested"] = line_harvested
+        metrics = dict(metrics)
+        metrics["lines_accepted"] = lines_accepted
+        metrics["wheel_accepted"] = wheel_accepted
+        metrics["gps_accepted"] = gps_accepted
+        metrics["tracked"] = torch.sum(ts.valid, dim=-1)
+        metrics["line_tracked"] = torch.sum(ts.lvalid, dim=-1)
+        metrics["harvested"] = torch.sum(torch.any(p_mask, dim=-1), dim=-1)
+        metrics["line_harvested"] = line_harvested
     return state, ts, metrics

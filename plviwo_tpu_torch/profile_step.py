@@ -9,13 +9,18 @@ tracks x 20 obs, 16 line tracks, 32 IMU / 32 wheel samples); `--frame` runs
 point slots x 8 obs, 24 line slots, 14 clones with wheel and one GPS block,
 up to 4 GPS fixes a frame, the port's simulator, after 6 warm-up frames);
 with `--stereo` a right image per sequence and two cameras (the L->R LK
-pass and the stereo point rows timed as stages), with `--dynamic`
-sequence b cloning on frames where (frame + b) is even (the masked clone
-and the interpolated point rows timed as stages).  It prints:
+pass in the front-end, the stereo point rows in the rows), with
+`--dynamic` sequence b cloning on frames where (frame + b) is even (the
+masked clone in the time update, the interpolated point rows in the
+rows).  It prints:
   - host syncs that torch reports during one step (sync debug mode);
   - the wall time of a step, and its device time from CUDA events;
-  - a per-stage breakdown: each stage, called in the same order, timed
-    alone (synchronized before and after);
+  - a per-stage breakdown: for the filter step each stage, called in the
+    same order, timed alone (synchronized before and after); for the
+    frame the stage spans of one profiled frame (`utils.timing.span`),
+    each with its device time (CUDA events on the stream: its kernels
+    and the gaps the host leaves between them), its share of the frame's
+    and its host time;
   - the profiler's top device kernels by time, and the device's busy
     share over the profiled steps (summed kernel time / wall time).
 """
@@ -135,110 +140,22 @@ def _frame_args(f, consts, mode=None):
             torch.ones(B, dtype=torch.bool, device=f["img"].device), *consts), kw
 
 
-def _frame_stage_times(state, ts, f, consts, mode=None):
-    """Device-synchronized wall time of each stage of fused_frame; the
-    front-end stages are timed alone and then `track_frame` whole."""
-    from .core import ekf, frame, propagator, step
-    from .core.state import newest_clone_slot
-    from .ops import cam, image, klt, line_detect, lk_kernel
-    from .update.wheel import W3D_ANG
+def _frame_spans(step, s):
+    """One frame under the profiler; returns (state after it, its stage
+    spans with their depth: [(span, depth)] in order of entry)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    out = {}
-    timed = _timer(out)
-    gravity, sigmas, sigma_pix, chi2_mult, sigma_line, wheel_noise = consts
-    f32, N, Lm = torch.float32, ts.uv.shape[1], ts.lseg.shape[1]
-    state = timed("propagate", lambda: propagator.propagate(
-        state, *f["imu"], f["t_new"], gravity, sigmas))
+    from .utils import timing
 
-    def clone(state):
-        state = step._auto_marginalize(state, f["t_new"], 1.0)
-        s0 = newest_clone_slot(state)
-        state = ekf.augment_clone(state)
-        return state, s0, newest_clone_slot(state)
-
-    state0 = state
-    state, slot0, slot1 = timed("marginalize+clone", lambda: clone(state))
-    if mode == "dynamic":
-        state = timed("clone mask (select per field)", lambda: frame._select(
-            f["do_clone"], state, state0))
-    pyr = timed("equalize+pyramid", lambda: image.build_pyramid(
-        image.hist_equalize_quantile(f["img"]), 3))
-    uv, ok = timed("LK (kernel)", lambda: lk_kernel.pyramidal_lk(
-        (ts.pyr0, ts.pyr1, ts.pyr2), pyr, ts.uv, ts.valid & ts.has_prev[:, None], 3, 7, 6))
-    kb = state.cam_k[:, :1]
-    inl = timed("undistort+RANSAC", lambda: klt.ransac_fundamental(
-        *cam.undistort(torch.cat([ts.uv, uv], 1).double(), kb, 0).split(N, dim=1), ok, ts.key,
-        ts.counter))
-    # the point slots as track_frame hands them to the line block
-    ok = ok & torch.where(torch.sum(ok, dim=-1, keepdim=True) >= 12, inl, ok)
-    alive = ts.valid & ok & ts.has_prev[:, None]
-    uv_cur = torch.where(alive[..., None], uv, ts.uv)
-    if mode == "stereo":
-        pyr_r = timed("right equalize+pyramid", lambda: image.build_pyramid(
-            image.hist_equalize_quantile(f["img_r"]), 3))
-        uv_r, ok_r = timed("L->R LK (kernel)", lambda: lk_kernel.pyramidal_lk(
-            pyr, pyr_r, uv_cur, alive, 3, 7, 6))
-        timed("right undistort+append", lambda: frame._append_r(
-            ts.hist_uv_r, ts.hist_uvn_r, ts.hist_rvalid, ts.n_obs, alive, uv_r,
-            cam.undistort(uv_r.double(), state.cam_k[:, 1:2], 0), ok_r))
-    det_uv, det_ok = timed("detect_grid", lambda: klt.detect_grid(
-        pyr[0], uv_cur, alive, 16, 12, N, min_px_dist=10.0))
-    take, filled = frame._fill_free_slots(~alive, det_ok)
-    uv_all = torch.where(filled[..., None], frame._take(det_uv, take), uv_cur)
-    valid_all = alive | filled
-    segs_h, _, cand_ok = timed("line detection", lambda: line_detect.detect_segments_runlen(
-        pyr[1]))
-    ls = timed("line NMS+attach+match", lambda: frame._line_slots(
-        ts, segs_h, cand_ok, uv_all, valid_all, alive))
-    lseg_n = cam.undistort(ls.lseg_all.reshape(-1, 2 * Lm, 2).double(), kb, 0).reshape(-1, Lm, 4)
-    timed("line histories", lambda: frame._line_histories(
-        ts, ls, lseg_n, uv_all, valid_all, f["t_new"], slot1))
-    stereo = dict(img_r=f["img_r"], cam_k_r=state.cam_k[:, 1]) if mode == "stereo" else {}
-    ts, harvest, lharvest = timed("track_frame (all front-end)", lambda: frame.track_frame(
-        ts, f["img"], state.cam_k[:, 0], f["t_new"], slot1, **stereo))
-    p_uv, p_uvn, p_slot, p_mask, p_t = harvest[:5]
-    if mode != "dynamic":
-        p_mask = frame._liveness(state, p_slot, p_t, p_mask)
-    p_mask = p_mask & (torch.sum(p_mask, dim=-1, keepdim=True) >= 3)
-    l_uv, l_uvn, l_slot, l_mask, l_t = lharvest
-    l_mask = frame._liveness(state, l_slot, l_t, l_mask)
-    l_mask = l_mask & (torch.sum(l_mask, dim=-1, keepdim=True) >= 3)
-    if mode == "stereo":
-        G1, c1, _ = timed("stereo point rows (incl. kernel)",
-                          lambda: step._camera_msckf_rows_stereo(
-                              state, p_uv, p_uvn, p_slot, p_mask, harvest[5], harvest[6],
-                              harvest[7] & p_mask, sigma_pix, chi2_mult, 0, f32))
-    elif mode == "dynamic":
-        G1, c1, _ = timed("interpolated point rows (incl. kernel)",
-                          lambda: step._camera_msckf_rows_interp(
-                              state, p_uv, p_uvn, p_t, p_mask, sigma_pix, chi2_mult, 0, f32))
-    else:
-        G1, c1, _ = timed("point rows (incl. kernel)", lambda: step._camera_msckf_rows(
-            state, p_uv, p_uvn, p_slot, p_mask, sigma_pix, chi2_mult, 0, f32))
-    G2, c2, _ = timed("line rows (incl. kernel)", lambda: step._line_msckf_rows(
-        state, l_uv.double(), l_uvn.double(), l_slot, l_mask, sigma_line, chi2_mult, f32))
-
-    def wheel():
-        Hw, rw, mw, _ = step._wheel_rows(state, slot0, slot1, *f["wheel"],
-                                         torch.ones_like(f["t_new"], dtype=torch.bool),
-                                         wheel_noise, chi2_mult, W3D_ANG, f32)
-        return step._rows_to_gram(Hw, rw, mw)
-
-    Gw, cw = timed("wheel rows", wheel)
-
-    def gps():
-        Hg, rg, mg, _ = step._gps_rows(state, *f["gps"], FRAME_KW["sigma_gps"],
-                                       FRAME_KW["gps_chi2_mult"])
-        return step._rows_to_gram(Hg, rg, mg)
-
-    Gg, cg = timed("GPS rows", gps)
-
-    def joint():
-        Hj, rj, mj = ekf.compress_from_gram(G1 + G2 + Gw + Gg, c1 + c2 + cw + cg)
-        return ekf.update(state, Hj, rj, torch.ones_like(rj), mj)
-
-    timed("compress+update", joint)
-    return out
+    timing.spans(clear=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        s = step(s)
+        torch.cuda.synchronize()
+    records = timing.spans(clear=True)
+    depth = {}
+    for r in records:
+        depth[r.id] = 0 if r.parent is None else depth[r.parent] + 1
+    return s, [(r, depth[r.id]) for r in records]
 
 
 def main(argv=None) -> int:
@@ -264,7 +181,7 @@ def main(argv=None) -> int:
     if a.frame:
         B = a.batch or 64
         n_warm = 6
-        frames, state, ts, consts = _frame_setup(B, n_warm + 3 * a.steps + 2, dev, mode)
+        frames, state, ts, consts = _frame_setup(B, n_warm + 2 * a.steps + 2, dev, mode)
         it = iter(frames)
 
         def step(s):
@@ -274,9 +191,6 @@ def main(argv=None) -> int:
         s = (state, ts)
         for _ in range(n_warm):
             s = step(s)
-
-        def stages(s):
-            return _frame_stage_times(s[0], s[1], next(it), consts, mode)
     else:
         B = a.batch or 128
         state, per_frame, consts = _inputs(B, dev)
@@ -284,9 +198,6 @@ def main(argv=None) -> int:
         def step(s):
             return fused_step_full(s, *per_frame, *consts, SIGMA_LINE, WHEEL_NOISE,
                                    cam_dtype=torch.float32)[0]
-
-        def stages(s):
-            return _stage_times(s, per_frame, consts)
 
         s = step(step(state))
     torch.cuda.synchronize()
@@ -314,8 +225,16 @@ def main(argv=None) -> int:
     print(f"step: wall {wall:.3f} ms, events {e0.elapsed_time(e1) / a.steps:.3f} ms "
           f"(B={B}, {B / wall * 1e3:.1f} frames/s)")
 
-    for name, ms in stages(s).items():
-        print(f"stage {name}: {ms:.3f} ms")
+    if a.frame:
+        s, records = _frame_spans(step, s)
+        frame_ms = records[0][0].device_ms
+        for r, depth in records:
+            host = (r.t1_ns - r.t0_ns) / 1e6
+            print(f"stage {'  ' * depth}{r.name}: device {r.device_ms:.3f} ms "
+                  f"({100 * r.device_ms / frame_ms:.1f}% of the frame), host {host:.3f} ms")
+    else:
+        for name, ms in _stage_times(s, per_frame, consts).items():
+            print(f"stage {name}: {ms:.3f} ms")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -327,8 +246,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
     # device-side entries only (kernels, memcpy, memset): the host operators
-    # that launch them report the same time again
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # that launch them report the same time again, and the stage spans'
+    # ranges, which the trace also lays on the device timeline, span them
+    notes = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in notes]
 
     def dev_self(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
