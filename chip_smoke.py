@@ -673,6 +673,7 @@ def run_images_in(sim, frames, dev, capture=None, lines_gps=True, mode=None):
     sigmas = (c.sigma_w, c.sigma_a, c.sigma_wb, c.sigma_ab)
     wheel_valid = torch.ones(B_IMG, dtype=torch.bool, device=dev)
     metrics, tracked_warm, t_start = [], None, None
+    failed = frame.fused_frame.graphs["failed"]
     for i, f in enumerate(frames):
         if i == N_WARM:
             torch.cuda.synchronize()
@@ -699,6 +700,10 @@ def run_images_in(sim, frames, dev, capture=None, lines_gps=True, mode=None):
         metrics.append(m)
     torch.cuda.synchronize()
     fps = B_IMG * N_TIMED / (time.perf_counter() - t_start)
+    if frame.fused_frame.graphs["failed"] > failed:
+        raise AssertionError(f"images-in path ({mode or 'mono'}, lines and GPS {lines_gps}): "
+                             "the CUDA graph capture of fused_frame failed (the warning says "
+                             "where); the frame must capture")
     return state, metrics, tracked_warm, fps, ts
 
 
@@ -2821,6 +2826,13 @@ def main() -> int:
           f"at B={B_IMG}; live driver at B=1, dynamic cloning p50 {ldyn['p50_ms']:.3f} ms / p90 "
           f"{ldyn['p90_ms']:.3f} ms, stereo p50 {lst['p50_ms']:.3f} ms / p90 "
           f"{lst['p90_ms']:.3f} ms")
+    from plviwo_tpu_torch.core import frame
+
+    graphs = frame.fused_frame.graphs
+    print(f"fused_frame calls on {card}: {graphs}")
+    if graphs["failed"]:
+        raise AssertionError(f"fused_frame: {graphs['failed']} CUDA graph captures failed (the "
+                             "warnings say where); every images-in variant must capture")
     track = {"mono": phase_track_mono(dev), "kaist": phase_track_kaist(dev)}
     phase_track_stereo()
     orders = phase_track_orders(dev)

@@ -36,6 +36,15 @@ clone, the dynamic select), `frame.frontend` (`track_frame`, with
 `frame.frontend.lines` around its line branch), `frame.rows` (liveness and
 every row, the gate/Gram kernel included) and `frame.update` (compression
 and the EKF update).
+
+On a card `fused_frame` runs as CUDA graphs where its key repeats
+(`utils/graphs`: the tensors' shapes and dtypes, the flags and the Python
+scalars the operators bake in): at a key's third call the operator chains
+between the spans' edges and the kernels' calls are captured, about ten
+graphs a frame, and later calls replay them.  The LK and gate/Gram kernels stay eager calls through
+their wrappers' module names (`lk_kernel.pyramidal_lk`, `step.gram_gate`),
+and every span is entered and left outside the graphs.  What the frame
+returns and the kernels' arguments are never graph memory.
 """
 
 from __future__ import annotations
@@ -45,13 +54,14 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..ops import cam as cam_ops
 from ..ops import image as image_ops
 from ..ops import klt as klt_ops
 from ..ops import line_detect, lk_kernel
 from ..update import wheel as wheel_up
-from ..utils.timing import span
+from ..utils import graphs
 from . import ekf, propagator
 from .state import CUDA, FilterState, checked_device, newest_clone_slot
 from .step import (_auto_marginalize, _camera_msckf_rows, _camera_msckf_rows_interp,
@@ -99,6 +109,11 @@ class TrackState:
 
     def replace(self, **kw) -> "TrackState":
         return dataclasses.replace(self, **kw)
+
+
+# the frame's states, walked by `utils/graphs` as trees of tensors and values
+for _cls in (FilterState, TrackState):
+    pytree.register_dataclass(_cls, field_names=[f.name for f in dataclasses.fields(_cls)])
 
 
 def make_track_state(height: int, width: int, n_pts: int = 128, max_lines: int = 24,
@@ -388,7 +403,13 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
 
     # ---- temporal LK + RANSAC ----
     has_prev = ts.has_prev[:, None]
-    lk = lk_kernel.pyramidal_lk if lk_conv else klt_ops.pyramidal_lk
+
+    def lk(*args):
+        # the kernel runs outside any CUDA graph, called through its module name
+        if lk_conv:
+            return graphs.call(lambda: lk_kernel.pyramidal_lk, *args)
+        return klt_ops.pyramidal_lk(*args)
+
     uv_next, ok = lk((ts.pyr0, ts.pyr1, ts.pyr2), pyr, ts.uv, ts.valid & has_prev, LEVELS,
                      half, iters)
     zn = cam_ops.undistort(torch.cat([ts.uv, uv_next], dim=1).to(F64), kb, cam_model)
@@ -442,7 +463,7 @@ def track_frame(ts: TrackState, img, cam_k, t_new, slot_new, half: int = 7,
     if lines:
         # ---- lines: detect at half resolution (FLD on pyrDown in the
         # reference), coordinates x2; match to last frame's lines; fill slots ----
-        with span("frame.frontend.lines"):
+        with graphs.span("frame.frontend.lines"):
             segs_h, _, cand_ok = line_detect.detect_segments_runlen(pyr[1])
             ls = _line_slots(ts, segs_h, cand_ok, uv_all, valid_all, alive)
             # one undistort for the point slots and the line endpoints (per
@@ -499,6 +520,7 @@ def _select(mask, a: FilterState, b: FilterState) -> FilterState:
                         for f in dataclasses.fields(a) if f.name != "layout"})
 
 
+@graphs.graphed
 def fused_frame(state: FilterState, ts: TrackState, img,
                 imu_t, imu_w, imu_a, t_new,
                 wheel_t, wheel_m1, wheel_m2, wheel_valid,
@@ -529,10 +551,14 @@ def fused_frame(state: FilterState, ts: TrackState, img,
     interpolated between clones, and the wheel rows, clone to clone, count
     only where do_clone.  use_stereo: img_r (B,H,W) the right image, camera
     1 of the state (camera 0 where it has one camera).  lk_conv=False
-    tracks with the gather LK instead of the LK kernel (`track_frame`)."""
-    with span("frame"):
+    tracks with the gather LK instead of the LK kernel (`track_frame`).
+
+    On a card a key's first two calls run eagerly, its third captures the
+    frame's CUDA graphs and later ones replay them (module docstring);
+    `fused_frame.graphs` counts the calls of each kind."""
+    with graphs.span("frame"):
         # --- filter time update ---
-        with span("frame.time_update"):
+        with graphs.span("frame.time_update"):
             state = propagator.propagate(state, imu_t, imu_w, imu_a, t_new, gravity, sigmas)
             state_m = _auto_marginalize(state, t_new, window_size)
             slot0 = newest_clone_slot(state_m)  # wheel interval start clone
@@ -543,7 +569,7 @@ def fused_frame(state: FilterState, ts: TrackState, img,
             state = _select(do_clone, state_c, state) if use_dynamic else state_c
 
         # --- front-end ---
-        with span("frame.frontend"):
+        with graphs.span("frame.frontend"):
             n_cams = state.cam_k.shape[1]
             ts, point_harvest, line_harvest = track_frame(
                 ts, img, state.cam_k[:, 0], t_new, slot1, half=half, iters=iters,
@@ -552,7 +578,7 @@ def fused_frame(state: FilterState, ts: TrackState, img,
                 cam_k_r=state.cam_k[:, 1 % n_cams], lk_conv=lk_conv)
 
         # --- rows at the common pre-update state, summed and factored once ---
-        with span("frame.rows"):
+        with graphs.span("frame.rows"):
             p_uv, p_uvn, p_slot, p_mask, p_t = point_harvest[:5]
             if not use_dynamic:
                 # dynamic: observations are resolved by time in the row builder
@@ -594,7 +620,7 @@ def fused_frame(state: FilterState, ts: TrackState, img,
                                                      gps_chi2_mult)
                 Gg, cg = _rows_to_gram(Hg, rg, mg)
                 G, c = G + Gg, c + cg
-        with span("frame.update"):
+        with graphs.span("frame.update"):
             Hj, rj, mj = ekf.compress_from_gram(G, c)
             state = ekf.update(state, Hj, rj, torch.ones_like(rj), mj)
 

@@ -14,8 +14,10 @@ time); both gate through the same kernel.
 All control flow is masked; nothing in the step reads a value back to the
 host, so metrics come back as (B,) tensors.  The gate always goes through
 `ops.msckf_kernel.gram_gate` (the CUDA kernel on the card, its plain
-version on the CPU); the JAX package's XLA gate path and its
-`use_pallas` switch are not ported.
+version on the CPU), through `utils/graphs.call`, so that it stays an
+eager call, looked up by this module's name, when the images-in frame runs
+as CUDA graphs; the JAX package's XLA gate path and its `use_pallas` switch
+are not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..update import cam_helper
 from ..update import gps as gps_up
 from ..update import lines as line_up
 from ..update import wheel as wheel_up
+from ..utils import graphs
 from . import ekf, propagator
 from .interp import interpolate_pose_linear
 from .layout import StateLayout
@@ -87,9 +90,10 @@ def _gram_rows(Hx, Hf, r, rowmask, cov, sigma, chi2_mult, resid_cap):
     gate_vec = _chi2_table32(Hx.device)[:M + 1] * chi2_mult
     w = torch.full(r.shape, float(np.float32(1.0) / np.float32(sigma)),
                    dtype=F32, device=Hx.device)
-    G, c, feat_ok, _chi = gram_gate(
-        Hx.contiguous(), Hf.contiguous(), r.contiguous(), rowmask.contiguous(),
-        w, cov.to(F32).contiguous(), gate_vec, resid_cap)
+    # the kernel runs outside any CUDA graph, called through this module's name
+    G, c, feat_ok, _chi = graphs.call(
+        lambda: gram_gate, Hx.contiguous(), Hf.contiguous(), r.contiguous(),
+        rowmask.contiguous(), w, cov.to(F32).contiguous(), gate_vec, resid_cap)
     n_rows = torch.sum(rowmask & feat_ok[..., None], dim=(-2, -1))
     return G.to(F64), c.to(F64), feat_ok, n_rows
 

@@ -16,7 +16,9 @@ max < 0.05 px (the bounds of tests/test_lk_kernel.py: the kernel's samples
 equal the plain version's, its warp sums take another order); the gather LK
 `ok` equal and pixels within 1e-3 px of the CPU's; the tag detector's
 detections equal to the CPU's and corners within 1e-3 px; the sharded full
-step on two ranks that share the card within 1e-9 of one process.
+step on two ranks that share the card within 1e-9 of one process; the
+images-in frame run as CUDA graphs equal to its eager body bit for bit (the
+same kernels on the same inputs).
 """
 
 import numpy as np
@@ -747,3 +749,100 @@ def test_sharded_full_step_two_ranks_on_one_card(cuda_device):
         assert r["backend"] == "gloo" and r["device"] == str(cuda_device)
         assert r["launches"] == {"lk_pyramid": 0, "msckf_gram_gate": 2}
         assert r["agg"]["accepted"] > 0 and r["agg"]["lines_accepted"] > 0
+
+
+def _frame_leaves(out):
+    """(name, tensor) of a fused_frame output (state, ts, metrics)."""
+    import dataclasses
+
+    st, ts, m = out
+    return ([(f"state.{f.name}", getattr(st, f.name)) for f in dataclasses.fields(st)
+             if isinstance(getattr(st, f.name), torch.Tensor)]
+            + [(f"ts.{f.name}", getattr(ts, f.name)) for f in dataclasses.fields(ts)]
+            + [(f"metrics.{k}", v) for k, v in m.items()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 1])
+def test_graphed_frame_matches_its_eager_body(cuda_device, monkeypatch, B):
+    """Nine images-in frames (points, lines, wheel and GPS rows) at batch B
+    through `fused_frame`, each against its eager body
+    (`fused_frame.__wrapped__`) on the same inputs.  GPS is off for frames
+    0-3 and on from frame 4 (another key); frame 7 starts over from the
+    first frame's state and TrackState (has_prev false).  A key's first two
+    calls run eagerly and the counter says so, its third captures, later
+    ones replay.  Every output equals the eager body's bit for bit; every frame
+    launches LK once and gate/Gram twice, through the wrappers' module
+    names; what frame i returned and the arguments and results of its kernel
+    calls are unchanged after frame i + 1."""
+    from plviwo_tpu_torch import examples
+    from plviwo_tpu_torch.core import frame, step
+    from plviwo_tpu_torch.core.layout import StateLayout
+    from plviwo_tpu_torch.core.state import FilterState
+    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+    from plviwo_tpu_torch.utils import graphs
+    from torch.utils import _pytree as pytree
+
+    monkeypatch.setattr(frame.fused_frame, "policy", graphs.Policy())
+    sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3))
+    layout = StateLayout(n_clones=6, n_cams=1, use_wheel=True, n_gps=1)
+    frames = examples.frame_inputs(sim, B, 9, torch.Generator(device=cuda_device).manual_seed(1),
+                                   t0=1.7)
+    gravity = torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64, device=cuda_device)
+    st0 = FilterState.from_numpy([examples.seed_state(sim, layout, 1.7)] * B, layout,
+                                 cuda_device)
+    ts0 = frame.make_track_state(480, 640, 64, 16, 4, batch=B, device=cuda_device)
+    taps = []
+    real_lk, real_gram = lk_kernel.pyramidal_lk, step.gram_gate
+
+    def keep(real):
+        def call(*args):
+            out = real(*args)
+            if taps is not None:
+                taps.append((args, out))
+            return out
+        return call
+
+    monkeypatch.setattr(lk_kernel, "pyramidal_lk", keep(real_lk))
+    monkeypatch.setattr(step, "gram_gate", keep(real_gram))
+
+    def tensors(x):
+        return [t for t in pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+    def run(fn, st, ts, f, use_gps):
+        return fn(st, ts, f["img"], *f["imu"], f["t_new"], *f["wheel"],
+                  torch.ones(B, dtype=torch.bool, device=cuda_device), gravity,
+                  (1.7e-4, 2.0e-3, 1.9e-5, 3.0e-3), 1.5, 8.0, 2.0, (0.05, 0.05, 0.02),
+                  use_gps=use_gps, gps_t=f["gps"][0], gps_p=f["gps"][1], gps_valid=f["gps"][2],
+                  sigma_gps=sim.cfg.sigma_gps, gps_chi2_mult=8.0)
+
+    kinds, kept, st, ts = [], None, st0, ts0
+    for i, f in enumerate(frames):
+        if i == 7:
+            st, ts = st0, ts0
+        before = dict(frame.fused_frame.graphs)
+        launches = (lk_kernel.lk_pyramid.launches, gram_gate.launches)
+        taps = []
+        out = run(frame.fused_frame, st, ts, f, i >= 4)
+        assert (lk_kernel.lk_pyramid.launches - launches[0],
+                gram_gate.launches - launches[1]) == (1, 2), i
+        assert len(taps) == 3, i
+        calls, taps = taps, None
+        kinds.append([k for k, v in frame.fused_frame.graphs.items() if v != before[k]])
+        ref = run(frame.fused_frame.__wrapped__, st, ts, f, i >= 4)
+        torch.cuda.synchronize()
+        # exact, NaN equal to NaN: the rows a mask drops may hold NaN
+        for (name, a), (_, b) in zip(_frame_leaves(out), _frame_leaves(ref)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"frame {i} {name}")
+        if kept is not None:  # frame i - 1's outputs and kernel calls, as they were
+            for a, b in zip(*kept):
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                           msg=f"frame {i - 1} kept")
+        mine = tensors(out) + tensors(calls)
+        kept = (mine, [t.clone() for t in mine])
+        st, ts = out[0], out[1]
+    assert kinds == [["eager"], ["eager"], ["captured"], ["replayed"], ["eager"], ["eager"],
+                     ["captured"], ["replayed"], ["replayed"]]
+    assert int(ts.valid.sum()) > 0 and int(st.clone_valid.sum()) > 0
