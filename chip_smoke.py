@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure raises, so the exit code is non-zero):
   1. device: requires torch.cuda; prints the card's name and power limit;
   2. build: compiles every CUDA source of the port (the MSCKF gate/Gram
-     kernel and the pyramidal LK kernel) with nvcc for sm_90a;
+     kernel, the pyramidal LK kernel and the line detector's run-length
+     kernel) with nvcc for sm_90a;
   3. gate/Gram kernel vs its plain PyTorch version at the filter bench's
      shapes (B = 128, M = 40, D = 162; points k = 3, F = 40 and lines
      k = 4, F = 16) and at the images-in frame's (B = 64, M = 16, D = 132;
@@ -14,6 +15,12 @@ Phases (any failure raises, so the exit code is non-zero):
      (B = 64, N = 128, 640 x 480, 3 levels, W = 15, 6 iterations) on two
      consecutive simulator frames with per-sequence pixel noise, with times
      and bound;
+  4b. the line detector's run-length kernel vs its plain version on level
+     1 (280 x 640) of a simulator frame at the fleet's 1280 x 560, with
+     per-sequence pixel noise, at B = 64 and B = 1: the reaches equal bit
+     for bit, and the detector's segments, lengths and valid flags through
+     it equal the plain path's; times (eager and replayed as a CUDA graph,
+     the plain version as the frame ran it) and bound;
   5. filter-only path: `fused_step_full` at the bench width (B = 128, 22
      clones, 40 point tracks x 20 obs, 16 line tracks, 32 IMU and 32 wheel
      samples) — one step with real point, line and wheel rows and exactly
@@ -23,8 +30,8 @@ Phases (any failure raises, so the exit code is non-zero):
      (mono points, run-length lines, W3D_ANG wheel and GPS rows; B = 64
      sequences, 640 x 480, 128 point slots x 8 obs, 24 line slots, up to 4
      GPS fixes a frame, D = 132) on the port's simulator: 6 warm-up and 12
-     timed frames with one LK and two gate/Gram launches (points, lines)
-     each; accepted point, line, wheel and GPS rows and tracked lines in
+     timed frames with one LK, two gate/Gram (points, lines) and one
+     line run-length launch each; accepted point, line, wheel and GPS rows and tracked lines in
      the timed frames, every sequence within 0.45 m of ground truth; the
      same 18 frames through the plain LK give the same tracked count, and
      accepted point and line totals within 1%;
@@ -274,6 +281,39 @@ def bound_ms(n_bytes, n_ops):
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
+def graph_ms(fn, n_iter=20):
+    """Mean milliseconds per replay of fn captured as one CUDA graph (device
+    time without the host's launches), warmed on a side stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay, n_iter)
+
+
+def reset_launches():
+    """Zero the three kernels' launch counters."""
+    from plviwo_tpu_torch.ops import line_kernel, lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    lk_kernel.lk_pyramid.launches = gram_gate.launches = line_kernel.reaches.launches = 0
+
+
+def launch_counts():
+    """Each kernel's launches since `reset_launches`."""
+    from plviwo_tpu_torch.ops import line_kernel, lk_kernel
+    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
+
+    return {"lk_pyramid": lk_kernel.lk_pyramid.launches, "msckf_gram_gate": gram_gate.launches,
+            "line_runlen": line_kernel.reaches.launches}
+
+
 def gram_work(rowmask, ok, D, k):
     """(bytes, FP32 operations) of one gate/Gram call from what its inputs
     need: the valid rows
@@ -466,6 +506,74 @@ def phase_lk(tag, args):
           f"{bms:.4f} ms ({by})")
     return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 n=int(uv.shape[1]))
+
+
+def runlen_bytes(B, H, W, A, rounds):
+    """(bytes one line run-length call must move: dlx, dly and mag read
+    once, the anchors read, both reaches written; the algorithm's own
+    traffic besides: the support byte written and read, and the 16 uint8
+    fields read and written once in each full-field round)."""
+    io = 3 * 4 * B * H * W + 8 * B * A + 2 * 2 * 8 * B * A
+    return io, 2 * B * H * W + 2 * 16 * B * H * W * (rounds - 1)
+
+
+def phase_line_runlen(dev):
+    """The line run-length kernel vs its plain version on level 1 of a
+    simulator frame rendered at the fleet's 1280 x 560 (280 x 640), with
+    per-sequence pixel noise, at B = 64 and B = 1 (phase 4b)."""
+    import torch
+
+    from plviwo_tpu_torch.examples import noisy_batch
+    from plviwo_tpu_torch.ops import image, line_detect, line_kernel
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3, width=1280,
+                              height=560))
+    frame = noisy_batch(sim.render_frame(1.4), B_IMG, torch.Generator(device=dev).manual_seed(5))
+    level1 = image.build_pyramid(image.hist_equalize_quantile(frame), 2)[1]
+    real, out = line_kernel.line_runlen, {}
+    for Bn in (B_IMG, 1):
+        img = level1[:Bn].contiguous()
+        seen = []
+        line_kernel.line_runlen = lambda *a: seen.append(a) or real(*a)
+        try:
+            kernel = line_detect.detect_segments_runlen(img)
+        finally:
+            line_kernel.line_runlen = real
+        args = seen[0]
+        got, want = real(*args), line_detect.runlen_reaches(*args)
+        line_kernel.line_runlen = line_detect.runlen_reaches
+        try:
+            plain = line_detect.detect_segments_runlen(img)
+        finally:
+            line_kernel.line_runlen = real
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b in (("reach_f", got[0], want[0]), ("reach_b", got[1], want[1]),
+                           ("segs", kernel[0], plain[0]), ("length", kernel[1], plain[1]),
+                           ("valid", kernel[2], plain[2])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"line run-length kernel B={Bn}: {name} differs from the "
+                                     f"plain version's in {int((a != b).sum())} entries")
+            err = max(err, float(torch.max(torch.abs(a.double() - b.double()))))
+        ms = cuda_ms(lambda: real(*args))
+        res = dict(max_abs_err=err, ms=ms, graph_ms=graph_ms(lambda: real(*args)),
+                   plain_ms=graph_ms(lambda: line_detect.runlen_reaches(*args), n_iter=5),
+                   plain_eager_ms=cuda_ms(lambda: line_detect.runlen_reaches(*args), n_iter=5),
+                   detect_ms=graph_ms(lambda: line_detect.detect_segments_runlen(img)))
+        H, W = img.shape[-2:]
+        io, rounds = runlen_bytes(Bn, H, W, args[3].shape[1], line_kernel.constants()[0])
+        res["bound_ms"], res["bound_by"] = bound_ms(io, 0)
+        res["rounds_traffic_ms"] = 1e3 * rounds / PEAK_BYTES
+        out[Bn] = res
+        print(f"line run-length B={Bn} {H}x{W}: reaches and segments equal to the plain "
+              f"version's ({int(kernel[2].sum())} valid, longest reach "
+              f"{int(max(int(want[0].max()), int(want[1].max())))}); kernel {ms:.4f} ms "
+              f"(graphed {res['graph_ms']:.4f}), plain {res['plain_ms']:.4f} ms graphed / "
+              f"{res['plain_eager_ms']:.4f} eager, detector {res['detect_ms']:.4f} ms graphed; "
+              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}; the rounds' field traffic "
+              f"{res['rounds_traffic_ms']:.4f} ms)")
+    return out
 
 
 def ptxas_report(log, kernel):
@@ -727,17 +835,13 @@ def check_near_truth(sim, frames, state, dev, what):
 def phase_images_in_points(sim, frames, dev):
     """The images-in frame with lines and GPS off (`feed_image`'s points +
     wheel, D = 124): one LK and one gate/Gram launch per frame, no line
-    front-end, accepted point and wheel rows, every sequence near truth."""
-    from plviwo_tpu_torch.ops import lk_kernel
-    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
-
+    front-end (no run-length launch), accepted point and wheel rows, every
+    sequence near truth."""
     n = len(frames)
-    lk_kernel.lk_pyramid.launches = 0
-    gram_gate.launches = 0
+    reset_launches()
     state, metrics, tracked_warm, fps, _ = run_images_in(sim, frames, dev, lines_gps=False)
-    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
-                "msckf_gram_gate": gram_gate.launches}
-    if launches != {"lk_pyramid": n, "msckf_gram_gate": n}:
+    launches = launch_counts()
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": n, "line_runlen": 0}:
         raise AssertionError(f"points-only: {launches} kernel launches in {n} frames, want one "
                              "each per frame")
     tot = {k: int(sum(int(m[k].sum()) for m in metrics[N_WARM:]))
@@ -757,18 +861,15 @@ def phase_images_in(sim, frames, dev):
     import torch
 
     from plviwo_tpu_torch.ops import klt, lk_kernel
-    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
 
     n = len(frames)
     captured = {}
-    lk_kernel.lk_pyramid.launches = 0
-    gram_gate.launches = 0
+    reset_launches()
     state, metrics, tracked_warm, fps, _ = run_images_in(sim, frames, dev, captured)
-    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
-                "msckf_gram_gate": gram_gate.launches}
-    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n}:
-        raise AssertionError(f"{launches} kernel launches in {n} frames, want one LK and two "
-                             "gate/Gram per frame")
+    launches = launch_counts()
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n, "line_runlen": n}:
+        raise AssertionError(f"{launches} kernel launches in {n} frames, want one LK, two "
+                             "gate/Gram and one line run-length per frame")
 
     def totals(ms):
         timed = ms[N_WARM:]
@@ -844,8 +945,6 @@ def phase_live_driver(dev):
     from plviwo_tpu_torch import examples
     from plviwo_tpu_torch.config.options import EstimatorOptions
     from plviwo_tpu_torch.core.system import VioSystem
-    from plviwo_tpu_torch.ops import lk_kernel
-    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
     from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
 
     sim = Simulator(SimConfig(duration=16.0, n_landmarks=350, n_lines=40, width=W_IMG,
@@ -861,8 +960,7 @@ def phase_live_driver(dev):
     timing, init_frame, capture = [], None, {}
     with recording(capture, n_gram=2 * LIVE_KEEP):
         torch.cuda.synchronize()
-        lk_kernel.lk_pyramid.launches = 0
-        gram_gate.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         for kind, args in events:
             n = system.stats["updates"]
@@ -873,8 +971,7 @@ def phase_live_driver(dev):
                     init_frame = len(timing) - 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
-                    "msckf_gram_gate": gram_gate.launches}
+        launches = launch_counts()
     n = system.stats["updates"]
     errs = [np.linalg.norm(p - (R @ sim.gt_kin(t)["p_IinG"] + t_enu))
             for t, _, p in system.traj[-30:]]
@@ -896,9 +993,11 @@ def phase_live_driver(dev):
           f"frame latency p50 {out['p50_ms']:.3f} ms, p90 {out['p90_ms']:.3f} ms (first "
           f"{out['first_ms']:.3f} ms); host time outside fused_frame {out['host_ms']:.3f} ms "
           f"a frame; GPS init {out['gps_init_ms']:.3f} ms; sensor stream drawn in {stream_s:.2f} s")
-    if n != LIVE_FRAMES or launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n}:
+    if n != LIVE_FRAMES or launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n,
+                                        "line_runlen": n}:
         raise AssertionError(f"live driver: {n} frames, launches {launches}; want "
-                             f"{LIVE_FRAMES} frames, one LK and two gate/Gram per frame")
+                             f"{LIVE_FRAMES} frames, one LK, two gate/Gram and one line "
+                             "run-length per frame")
     if not ok:
         raise AssertionError("live driver: missed the gates of tests/test_gps_fused.py "
                              "(GPS initialized, gps_fused >= 3, last-30 RMSE < 1.0 m, "
@@ -978,19 +1077,16 @@ def phase_images_in_stereo(dev):
     within 0.45 m; the same frames through the plain LK give the same
     tracked count and accepted totals within 1%."""
     from plviwo_tpu_torch.ops import klt, lk_kernel
-    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
 
     sim, frames = images_in_stereo_inputs(dev)
     n = len(frames)
     captured = {}
-    lk_kernel.lk_pyramid.launches = 0
-    gram_gate.launches = 0
+    reset_launches()
     state, metrics, tracked_warm, fps, ts = run_images_in(sim, frames, dev, captured, mode="stereo")
-    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
-                "msckf_gram_gate": gram_gate.launches}
-    if launches != {"lk_pyramid": 2 * n, "msckf_gram_gate": 2 * n}:
+    launches = launch_counts()
+    if launches != {"lk_pyramid": 2 * n, "msckf_gram_gate": 2 * n, "line_runlen": n}:
         raise AssertionError(f"stereo images-in: {launches} kernel launches in {n} frames, want "
-                             "two LK and two gate/Gram per frame")
+                             "two LK, two gate/Gram and one line run-length per frame")
     tot = kernel_totals(metrics)
     # tests/test_stereo_fused.py counts the valid slots, fresh detections
     # (no right observation yet) included; the slots tracked into the last
@@ -1045,15 +1141,13 @@ def phase_images_in_dynamic(sim, frames, dev):
             if do_clone(j, i):
                 t_clone[j] = f["t"]
     captured = {}
-    lk_kernel.lk_pyramid.launches = 0
-    gram_gate.launches = 0
+    reset_launches()
     state, metrics, tracked_warm, fps, _ = run_images_in(sim, frames, dev, captured,
                                                          mode="dynamic")
-    launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
-                "msckf_gram_gate": gram_gate.launches}
-    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n}:
+    launches = launch_counts()
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n, "line_runlen": n}:
         raise AssertionError(f"dynamic images-in: {launches} kernel launches in {n} frames, want "
-                             "one LK and two gate/Gram per frame")
+                             "one LK, two gate/Gram and one line run-length per frame")
     tot = kernel_totals(metrics)
     rmse = torch.sqrt(torch.mean(torch.stack([m["err"] for m in metrics]) ** 2, dim=0))
     clones = int(state.clone_valid.sum())
@@ -1087,14 +1181,11 @@ def drive_live(system, events, keep=LIVE_KEEP, n_gram=2, per_frame=None):
     import torch
 
     from plviwo_tpu_torch import examples
-    from plviwo_tpu_torch.ops import lk_kernel
-    from plviwo_tpu_torch.ops.msckf_kernel import gram_gate
 
     timing, capture = [], {}
     with recording(capture, n_gram=n_gram * keep):
         torch.cuda.synchronize()
-        lk_kernel.lk_pyramid.launches = 0
-        gram_gate.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         for kind, args in events:
             n = system.stats["updates"]
@@ -1105,8 +1196,7 @@ def drive_live(system, events, keep=LIVE_KEEP, n_gram=2, per_frame=None):
                     per_frame(system)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"lk_pyramid": lk_kernel.lk_pyramid.launches,
-                    "msckf_gram_gate": gram_gate.launches}
+        launches = launch_counts()
     return launches, timing, wall, capture
 
 
@@ -1161,10 +1251,10 @@ def phase_live_dynamic(dev):
           and system.stats["wheel_accept"] > clones // 3 and rmse < 0.5 and len(nees[10:]) > 40
           and bool(((means > 0.15) & (means < 6.0)).all()) and bool(torch.isfinite(d).all())
           and bool((d > -1e-9).all()))
-    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n} or not ok:
+    if launches != {"lk_pyramid": n, "msckf_gram_gate": 2 * n, "line_runlen": n} or not ok:
         raise AssertionError("live driver, dynamic cloning: missed the gates of "
-                             "tests/test_dynamic_fused.py or one LK and two gate/Gram launches "
-                             "a frame")
+                             "tests/test_dynamic_fused.py or one LK, two gate/Gram and one "
+                             "line run-length launch a frame")
     return launches, dict(p50_ms=p50, p90_ms=p90, fps=n / wall), capture
 
 
@@ -1200,9 +1290,9 @@ def phase_live_stereo(dev):
               f"latency p50 {p50:.3f} ms, p90 {p90:.3f} ms; {out[stereo]['fps']:.2f} frames/s")
     s, m = out[True], out[False]
     n = s["n"]
-    if s["launches"] != {"lk_pyramid": 2 * n, "msckf_gram_gate": n}:
+    if s["launches"] != {"lk_pyramid": 2 * n, "msckf_gram_gate": n, "line_runlen": 0}:
         raise AssertionError(f"live driver, stereo: {s['launches']} in {n} frames, want two LK "
-                             "and one gate/Gram per frame")
+                             "and one gate/Gram per frame (no lines)")
     if not (n == STEREO_FRAMES and s["rmse"] < 0.30 and s["acc"] > m["acc"]
             and s["rmse"] < 1.25 * m["rmse"]):
         raise AssertionError("live driver, stereo: missed the gates of "
@@ -2608,7 +2698,8 @@ def phase_distributed(dev):
         ranks = dry[world]
         s, f = ranks[0]["step"], ranks[0]["frame"]
         for r in ranks:
-            want = ({"lk_pyramid": 0, "msckf_gram_gate": 2}, {"lk_pyramid": 1, "msckf_gram_gate": 2})
+            want = ({"lk_pyramid": 0, "msckf_gram_gate": 2, "line_runlen": 0},
+                    {"lk_pyramid": 1, "msckf_gram_gate": 2, "line_runlen": 1})
             got = (r["step"]["launches"], r["frame"]["launches"])
             if got != want:
                 raise AssertionError(f"dry run, world {world}, rank {r['step']['rank']}: "
@@ -2622,7 +2713,7 @@ def phase_distributed(dev):
               f"{s['backend']}, launches per rank: step {s['launches']}, frame {f['launches']}")
         out[f"dryrun_{world}"] = {"step_bitwise": s["bitwise"], "frame_bitwise": f["bitwise"],
                                   "dp": s["dp"], "dcov": s["dcov"], "frame_dp": f["dp"]}
-    for k in ("msckf_gram_gate", "lk_pyramid"):
+    for k in ("msckf_gram_gate", "lk_pyramid", "line_runlen"):
         out["launches"][("sharded_step", k)] = sum(
             r["step"]["launches"][k] for w in (2, 4) for r in dry[w])
         out["launches"][("dryrun_fused_frame", k)] = sum(
@@ -2674,7 +2765,7 @@ def phase_distributed(dev):
     dtraj = float(np.max(np.abs(traj4 - traj1)))
     if not dtraj < 1e-9:
         raise AssertionError(f"config 5: 4 ranks and 1 rank differ by {dtraj:.3e} m")
-    want = {"lk_pyramid": 0, "msckf_gram_gate": 2 * n_frames}
+    want = {"lk_pyramid": 0, "msckf_gram_gate": 2 * n_frames, "line_runlen": 0}
     for rep in (rep4, rep1):
         seqs = rep["sequences"]
         if not (rep["accepted"] > 200 and rep["lines_accepted"] > 40 and len(seqs) == 4):
@@ -2708,7 +2799,7 @@ def phase_distributed(dev):
               + ", ".join(f"{s['ba_ms']:.3f}" for s in rep["sequences"])
               + f"; launches per rank {rep['launches_per_rank']}")
     print(f"config 5: 4 ranks vs 1 rank, max |dp| over the trajectories {dtraj:.3e} m")
-    for k in ("msckf_gram_gate", "lk_pyramid"):
+    for k in ("msckf_gram_gate", "lk_pyramid", "line_runlen"):
         out["launches"][("batch_replay", k)] = sum(
             r[k] for rep in (rep4, rep1) for r in rep["launches_per_rank"])
     # gate/Gram on the replay's own arguments: a rank's pair (4 ranks) and B = 4 (1 rank)
@@ -2800,6 +2891,7 @@ def main() -> int:
                    for Bn, F, M, D in ((B_IMG, N_PTS, 4 * MAX_OBS, 147),
                                        (1, LIVE_PTS, 4 * LIVE_OBS, 127))]
     lk = phase_lk("synthetic", lk_args(dev))
+    runlen = phase_line_runlen(dev)
 
     filter_launches, filter_fps = phase_filter_only(dev)
     sim, frames = images_in_inputs(dev)
@@ -2947,7 +3039,23 @@ def main() -> int:
          "live_driver_b1": times(lk_live),
          "stereo_frame_lr": times(new_paths["stereo_frame_lk_lr"]),
          "dryrun_next_frame": times(dist_checks["next_frame_lk"]),
-         "captured_frame": times(lk_frame)}
+         "captured_frame": times(lk_frame)},
+        {"name": "line_runlen", "route": "cuda",
+         "source": "plviwo_tpu_torch/csrc/line_runlen.cu",
+         "replaces": "no TPU kernel: the JAX detector is XLA operations",
+         "launches": img_launches["line_runlen"], **runlen[B_IMG],
+         "max_abs_err": max(runlen[B_IMG]["max_abs_err"], runlen[1]["max_abs_err"]),
+         "library_ms": None, "per": "B=64, 280x640 (the fleet's level 1)",
+         "b1": runlen[1],
+         "launches_by_path": {"images_in": img_launches["line_runlen"],
+                              "images_in_points_only": pts_launches["line_runlen"],
+                              "live_driver_b1": live_launches["line_runlen"],
+                              "images_in_stereo": st_launches["line_runlen"],
+                              "images_in_dynamic": dyn_launches["line_runlen"],
+                              "live_driver_dynamic": ldyn_launches["line_runlen"],
+                              "live_driver_stereo": lst_launches["line_runlen"],
+                              **{path: distributed["launches"][(path, "line_runlen")]
+                                 for path in DISTRIBUTED_PATHS}}}
     ]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to end")
     failed = [r["failed"] for r in track.values() if r.get("failed")]

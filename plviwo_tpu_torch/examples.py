@@ -245,6 +245,31 @@ def lk_pair(sim, B: int, n_pts: int, t: float, gen: torch.Generator, dt: float =
     return pyrs[0], pyrs[1], uv, valid
 
 
+def line_images(B: int, H: int, W: int, seed: int = 0) -> np.ndarray:
+    """B float32 images (B, H, W) of bright 2.4-px stripes on a noisy grey
+    ground, for the line detector's tests: in each image one stripe along
+    each of the 8 lattice directions and eight at angles between them, each
+    through a random point and between 20 px and twice the image's diagonal
+    long, so that many run into a border."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    lattice = [np.arctan2(dy, dx) for dx, dy in
+               ((1, 0), (2, 1), (1, 1), (1, 2), (0, 1), (-1, 2), (-1, 1), (-2, 1))]
+    out = np.empty((B, H, W), np.float32)
+    for b in range(B):
+        img = 0.45 + 0.01 * rng.standard_normal((H, W))
+        for ang in lattice + [a + rng.uniform(0.1, 0.3) for a in lattice]:
+            cx, cy = rng.uniform(0, W), rng.uniform(0, H)
+            half = rng.uniform(10.0, np.hypot(H, W))
+            ux, uy = np.cos(ang), np.sin(ang)
+            along = (xx - cx) * ux + (yy - cy) * uy
+            across = -(xx - cx) * uy + (yy - cy) * ux
+            d = np.hypot(across, np.maximum(np.abs(along) - half, 0.0))
+            img += rng.uniform(0.15, 0.4) * np.exp(-0.5 * (d / 1.2) ** 2)
+        out[b] = np.clip(img, 0.0, 1.0)
+    return out
+
+
 def frame_inputs(sim, B: int, n_frames: int, gen: torch.Generator, t0: float = 1.0,
                  dt: float = 0.1, gps_pad: int = GPS_PAD, stereo: bool = False):
     """`fused_frame` inputs of n_frames frames at t0 + dt (i + 1) for B

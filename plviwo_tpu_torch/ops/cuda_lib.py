@@ -87,7 +87,12 @@ def library() -> ctypes.CDLL:
     lib.lk_pyramid.restype = ci
     lib.lk_pyramid_smem_bytes.argtypes = [ci, ci, ci]
     lib.lk_pyramid_smem_bytes.restype = sz
-    for name in ("msckf_gram_gate_error_string", "lk_pyramid_error_string"):
+    lib.line_runlen.argtypes = [vp] * 4 + [ci] * 4 + [vp] + [cf] * 2 + [ci] + [vp] * 5
+    lib.line_runlen.restype = ci
+    lib.line_runlen_scratch_bytes.argtypes = [ci] * 3
+    lib.line_runlen_scratch_bytes.restype = sz
+    for name in ("msckf_gram_gate_error_string", "lk_pyramid_error_string",
+                 "line_runlen_error_string"):
         getattr(lib, name).argtypes = [ci]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

@@ -9,9 +9,12 @@ its gradient magnitude passes and its level-line direction agrees; the
 support is dilated 3x3, and the run length of consecutive support along the
 direction is computed for every pixel at once by pointer doubling
 (ceil(log2(LINE_STEPS)) rounds of shifted, masked adds, with a lateral
-dilation for off-lattice lines).  An anchor's line direction comes from the
-smoothed structure tensor, snapped to the nearest lattice ray, and its
-reach fore and aft along that ray gives the segment's endpoints.
+dilation for off-lattice lines) and read at the anchors.  That part runs
+through `ops/line_kernel.line_runlen`: on a card the hand kernel
+`csrc/line_runlen.cu`, on the CPU its plain version `runlen_reaches`.  An
+anchor's line direction comes from the smoothed structure tensor, snapped
+to the nearest lattice ray, and its reach fore and aft along that ray gives
+the segment's endpoints.
 
 `detect_segments`, the EDLines-style anchor walk the host line tracker
 runs, one image: every anchor marches both ways along its level line (both
@@ -28,8 +31,8 @@ candidates (numpy, a copy of the JAX package's).
 Images are float32.  Shifts are pad-and-slice with an explicit fill, as
 the JAX package writes them (no `torch.roll`: the fill matters).  The
 support masks and run lengths, float32 0/1 sums in the JAX package, are
-int16 here: the same integers (a run never exceeds 2^n_doubling steps) in
-half the bytes of the ~2k full-image passes.
+int16 in `runlen_reaches` (uint8 in the kernel): the same integers, since a
+run never exceeds 2^n_doubling = 128 steps.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import graphs
+from . import line_kernel
 from .image import bilinear_sample, gauss_blur, gradients
 
 F32 = torch.float32
@@ -63,6 +68,14 @@ _DIRS8 = np.array([
 _UNIT8 = [tuple(float(np.float32(v)) for v in d / np.hypot(*d)) for d in _DIRS8.astype(np.float64)]
 # the step lengths |d| as float32: 1 (k = 0, 4), sqrt 2 (k = 2, 6), sqrt 5 (odd k)
 _SQRT2, _SQRT5 = float(np.float32(np.sqrt(2.0))), float(np.float32(np.sqrt(5.0)))
+# the run-length doubling rounds: a run reaches 2^N_DOUBLING >= LINE_STEPS steps
+N_DOUBLING = int(np.ceil(np.log2(LINE_STEPS)))
+
+
+def _drift(step: int) -> int:
+    """The lateral drift, in px, that the doubling round of `step` steps
+    follows for off-lattice lines."""
+    return int(math.ceil(0.22 * step))
 
 
 def _shift2d(x, dy: int, dx: int, fill=0):
@@ -109,6 +122,39 @@ def _cell_anchors(mag, n: int):
     return torch.gather(au, 1, order), torch.gather(av, 1, order), torch.gather(cell_mag, 1, order)
 
 
+def runlen_reaches(dlx, dly, mag, at):
+    """The run lengths, in steps, of consecutive support fore and aft along
+    each of the 8 lattice directions at the anchors: the plain version of
+    the kernel `ops/line_kernel.line_runlen`.  dlx, dly (the unit level-line
+    direction) and mag (B, H, W) float32; at (B, A) flat pixel indices.
+    Returns (reach_f, reach_b), each (B, A, 8) int16."""
+    cos_tol = float(np.cos(ANG_TOL))
+    reach_f, reach_b = [], []  # per direction: run lengths in steps at the anchors
+    for k in range(8):
+        sx, sy = int(_DIRS8[k][0]), int(_DIRS8[k][1])
+        norm = float(np.hypot(sx, sy))
+        ux, uy = sx / norm, sy / norm
+        sup = ((torch.abs(dlx * ux + dly * uy) > cos_tol) & (mag > MAG_THRESH)).to(I16)
+        # 3x3 dilation: an off-lattice line staircases by <= 1 px per step
+        sup = torch.maximum(torch.maximum(_shift2d(sup, -1, 0), sup), _shift2d(sup, 1, 0))
+        sup = torch.maximum(torch.maximum(_shift2d(sup, 0, -1), sup), _shift2d(sup, 0, 1))
+        # lateral drift axis: the ray's minor axis
+        ly, lx = (0, 1) if abs(sx) <= abs(sy) else (1, 0)
+        r_f = r_b = sup
+        step = 1
+        for _ in range(N_DOUBLING):
+            # r'(p) = r(p) + [r(p) >= step] * max_lat r(p + step d + lat)
+            drift = _drift(step)
+            cont_f = _lat_dilate(r_f, drift, ly, lx)
+            cont_b = _lat_dilate(r_b, drift, ly, lx)
+            r_f = r_f + torch.where(r_f >= step, _shift2d(cont_f, step * sy, step * sx), 0)
+            r_b = r_b + torch.where(r_b >= step, _shift2d(cont_b, -step * sy, -step * sx), 0)
+            step *= 2
+        reach_f.append(_flat_gather(r_f, at))
+        reach_b.append(_flat_gather(r_b, at))
+    return torch.stack(reach_f, -1), torch.stack(reach_b, -1)
+
+
 def detect_segments_runlen(img):
     """Candidate segments of B images (B, H, W) from per-pixel run-length
     fields.  Returns (segs (B, A, 4) [x1 y1 x2 y2], length (B, A),
@@ -130,31 +176,9 @@ def detect_segments_runlen(img):
     au, av, amag = _cell_anchors(mag, LINE_ANCHORS)
     at = av * W + au  # (B, A) flat pixel of each anchor
 
-    n_doubling = int(np.ceil(np.log2(LINE_STEPS)))
-    cos_tol = float(np.cos(ANG_TOL))
-    reach_f, reach_b = [], []  # per direction: run lengths in steps at the anchors
-    for k in range(8):
-        sx, sy = int(_DIRS8[k][0]), int(_DIRS8[k][1])
-        norm = float(np.hypot(sx, sy))
-        ux, uy = sx / norm, sy / norm
-        sup = ((torch.abs(dlx * ux + dly * uy) > cos_tol) & (mag > MAG_THRESH)).to(I16)
-        # 3x3 dilation: an off-lattice line staircases by <= 1 px per step
-        sup = torch.maximum(torch.maximum(_shift2d(sup, -1, 0), sup), _shift2d(sup, 1, 0))
-        sup = torch.maximum(torch.maximum(_shift2d(sup, 0, -1), sup), _shift2d(sup, 0, 1))
-        # lateral drift axis: the ray's minor axis
-        ly, lx = (0, 1) if abs(sx) <= abs(sy) else (1, 0)
-        r_f = r_b = sup
-        step = 1
-        for _ in range(n_doubling):
-            # r'(p) = r(p) + [r(p) >= step] * max_lat r(p + step d + lat)
-            drift = int(math.ceil(0.22 * step))
-            cont_f = _lat_dilate(r_f, drift, ly, lx)
-            cont_b = _lat_dilate(r_b, drift, ly, lx)
-            r_f = r_f + torch.where(r_f >= step, _shift2d(cont_f, step * sy, step * sx), 0)
-            r_b = r_b + torch.where(r_b >= step, _shift2d(cont_b, -step * sy, -step * sx), 0)
-            step *= 2
-        reach_f.append(_flat_gather(r_f, at))
-        reach_b.append(_flat_gather(r_b, at))
+    # the run lengths at the anchors: the hand kernel on a card, run outside
+    # any CUDA graph and looked up by its module name at every call
+    reach_f, reach_b = graphs.call(lambda: line_kernel.line_runlen, dlx, dly, mag, at)
 
     # true local line direction: perpendicular to the structure tensor's
     # dominant eigenvector
@@ -175,8 +199,8 @@ def detect_segments_runlen(img):
     stretch = step_len / torch.clamp(torch.abs(sdot), min=0.8)
 
     # reach in steps; -1 drops the dilation halo at each end
-    n_f = torch.clamp(torch.gather(torch.stack(reach_f, -1), -1, k)[..., 0].to(F32) - 1.0, min=0.0)
-    n_b = torch.clamp(torch.gather(torch.stack(reach_b, -1), -1, k)[..., 0].to(F32) - 1.0, min=0.0)
+    n_f = torch.clamp(torch.gather(reach_f, -1, k)[..., 0].to(F32) - 1.0, min=0.0)
+    n_b = torch.clamp(torch.gather(reach_b, -1, k)[..., 0].to(F32) - 1.0, min=0.0)
 
     ax, ay = au.to(F32), av.to(F32)
     ef, eb = n_f * stretch, n_b * stretch

@@ -15,9 +15,10 @@ sequence filters, sharded one sequence per rank, runs
      > 0 and p within 1e-9 of one process.  The port's line detector has
      fixed anchors and steps (192, 96; JAX's dry run passes 64 and 48).
 
-Each rank reports its gate/Gram and LK launches in its sharded step and
-frame (2 gate/Gram in the step; 1 LK and 2 gate/Gram in the frame), and
-whether the sharded result equals the one-process run bit for bit.
+Each rank reports its gate/Gram, LK and line run-length launches in its
+sharded step and frame (2 gate/Gram in the step; 1 LK, 2 gate/Gram and 1
+line run-length in the frame), and whether the sharded result equals the
+one-process run bit for bit.
 
 Run: python -m plviwo_tpu_torch.parallel.dryrun [--world 2] [--device cpu]
 """

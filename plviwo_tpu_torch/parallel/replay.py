@@ -127,24 +127,26 @@ def step_no_lone(fn, n_batched: int, *args, **kwargs):
 
 
 # the port's kernels, by the names chip_smoke.py reports them under
-KERNELS = ("lk_pyramid", "msckf_gram_gate")
+KERNELS = ("lk_pyramid", "msckf_gram_gate", "line_runlen")
 
 
 def zero_launches():
-    """Set both kernels' launch counts to 0."""
-    from ..ops import lk_kernel
+    """Set the kernels' launch counts to 0."""
+    from ..ops import line_kernel, lk_kernel
     from ..ops.msckf_kernel import gram_gate
 
     lk_kernel.lk_pyramid.launches = 0
     gram_gate.launches = 0
+    line_kernel.reaches.launches = 0
 
 
 def kernel_launches() -> dict:
     """This process's launch count of each kernel since `zero_launches`."""
-    from ..ops import lk_kernel
+    from ..ops import line_kernel, lk_kernel
     from ..ops.msckf_kernel import gram_gate
 
-    return dict(zip(KERNELS, (lk_kernel.lk_pyramid.launches, gram_gate.launches)))
+    return dict(zip(KERNELS, (lk_kernel.lk_pyramid.launches, gram_gate.launches,
+                              line_kernel.reaches.launches)))
 
 
 def take_shard(group: RankGroup, x, sl: slice):

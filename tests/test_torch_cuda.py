@@ -18,7 +18,9 @@ equal the plain version's, its warp sums take another order); the gather LK
 detections equal to the CPU's and corners within 1e-3 px; the sharded full
 step on two ranks that share the card within 1e-9 of one process; the
 images-in frame run as CUDA graphs equal to its eager body bit for bit (the
-same kernels on the same inputs).
+same kernels on the same inputs); the line detector's run-length kernel
+equal to its plain version bit for bit (its reaches, and the detector's
+segments, lengths and valid flags through it).
 """
 
 import numpy as np
@@ -195,15 +197,20 @@ def _assert_lk_close(out, ref, sel=None):
     torch.testing.assert_close(err1[both], err0[both], rtol=1e-3, atol=1e-6)
 
 
-def _nan_empty(empty):
-    """torch.empty that fills what it returns with NaN (bool: byte 255), so
-    an output the kernel leaves unwritten shows."""
+def _junk_empty(empty):
+    """torch.empty that fills what it returns with junk (NaN; bool and uint8
+    255; other integers -7), so an output or scratch byte the kernel reads
+    unwritten shows."""
     def filled(*args, **kwargs):
         t = empty(*args, **kwargs)
         if t.dtype == torch.bool:
             t.view(torch.uint8).fill_(255)
-        else:
+        elif t.dtype == torch.uint8:
+            t.fill_(255)
+        elif t.is_floating_point():
             t.fill_(float("nan"))
+        else:
+            t.fill_(-7)
         return t
     return filled
 
@@ -248,7 +255,7 @@ def test_lk_kernel_matches_plain(cuda_device, case, monkeypatch):
     args = (prev_pyr, next_pyr, uv, valid, levels, half, 6)
     before = lk_kernel.lk_pyramid.launches
     with monkeypatch.context() as m:
-        m.setattr(torch, "empty", _nan_empty(torch.empty))
+        m.setattr(torch, "empty", _junk_empty(torch.empty))
         out = lk_kernel.lk_pyramid(*args)
     ref = klt.pyramidal_lk_conv_full(*args)
     torch.cuda.synchronize()
@@ -285,17 +292,116 @@ def test_lk_kernel_rejects_what_it_does_not_take(cuda_device):
     lk_kernel.pyramidal_lk(prev_pyr, next_pyr, uv, valid, 3, half=7)
 
 
+def _runlen_images(B, H, W, kind, dev):
+    """B images (B, H, W) on dev: synthetic stripes along the 8 lattice
+    directions and between them, many running into a border ("lines"), or
+    level 1 of the equalized pyramid of a simulator frame rendered at
+    2W x 2H with per-sequence pixel noise ("sim"), as the frame detects."""
+    from plviwo_tpu_torch.examples import line_images, noisy_batch
+    from plviwo_tpu_torch.ops import image
+    from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    if kind == "lines":
+        return torch.as_tensor(line_images(B, H, W, seed=B + W), device=dev)
+    sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3, width=2 * W,
+                              height=2 * H))
+    img = noisy_batch(sim.render_frame(1.3), B, torch.Generator(device=dev).manual_seed(B))
+    return image.build_pyramid(image.hist_equalize_quantile(img.to(torch.float32)), 2)[1]
+
+
+def _runlen_args(img):
+    """The (dlx, dly, mag, at) the detector hands `line_kernel.line_runlen`
+    for img."""
+    from plviwo_tpu_torch.ops import line_detect, line_kernel
+
+    seen = []
+    real = line_kernel.line_runlen
+    line_kernel.line_runlen = lambda *a: seen.append(a) or line_detect.runlen_reaches(*a)
+    try:
+        line_detect.detect_segments_runlen(img)
+    finally:
+        line_kernel.line_runlen = real
+    return seen[0]
+
+
+# case: (B, H, W, images).  Level 1 of the fleet's 1280 x 560 frames at B = 64, 2
+# and 1 (the fleet, the distributed config 5 pair, the live driver); the
+# distributed sharded frame's 160 x 120 at B = 2; an odd size.
+RUNLEN_CASES = {
+    "fleet-b64-lines": (64, 280, 640, "lines"), "fleet-b64-sim": (64, 280, 640, "sim"),
+    "b2-lines": (2, 280, 640, "lines"), "b1-lines": (1, 280, 640, "lines"),
+    "b1-sim": (1, 280, 640, "sim"), "sharded-b2-sim": (2, 120, 160, "sim"),
+    "sharded-b2-lines": (2, 120, 160, "lines"), "odd-197x333": (2, 197, 333, "lines"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RUNLEN_CASES))
+def test_line_runlen_matches_plain(cuda_device, case, monkeypatch):
+    """The kernel's reaches equal the plain version's bit for bit, with its
+    scratch and outputs handed out full of junk; and the detector through
+    the kernel returns the plain path's segments, lengths and valid flags
+    exactly."""
+    from plviwo_tpu_torch.ops import line_detect, line_kernel
+
+    B, H, W, kind = RUNLEN_CASES[case]
+    img = _runlen_images(B, H, W, kind, cuda_device)
+    args = _runlen_args(img)
+    before = line_kernel.reaches.launches
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", _junk_empty(torch.empty))
+        got = line_kernel.line_runlen(*args)
+    want = line_detect.runlen_reaches(*args)
+    torch.cuda.synchronize()
+    assert line_kernel.reaches.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int16 and g.shape == (B, line_detect.LINE_ANCHORS, 8)
+        assert torch.equal(g, w), int((g != w).sum())
+    assert int(want[0].max()) > 8 and int(want[1].max()) > 8
+    kernel = line_detect.detect_segments_runlen(img)
+    monkeypatch.setattr(line_kernel, "line_runlen", line_detect.runlen_reaches)
+    plain = line_detect.detect_segments_runlen(img)
+    for name, a, b in zip(("segs", "length", "valid"), kernel, plain):
+        assert torch.equal(a, b), name
+    assert int(kernel[2].sum()) > 10 * B
+
+
+@pytest.mark.cuda
+def test_line_runlen_rejects_what_it_does_not_take(cuda_device):
+    from plviwo_tpu_torch.ops import line_kernel
+
+    dlx, dly, mag, at = _runlen_args(_runlen_images(2, 60, 90, "lines", cuda_device))
+    run = line_kernel.line_runlen
+    with pytest.raises(ValueError):
+        run(dlx.double(), dly, mag, at)
+    with pytest.raises(ValueError):
+        run(dlx, dly, mag, at.to(torch.int32))
+    with pytest.raises(ValueError):
+        run(dlx, dly, mag.cpu(), at)
+    with pytest.raises(ValueError):
+        run(dlx.transpose(-1, -2).contiguous().transpose(-1, -2), dly, mag, at)
+    with pytest.raises(ValueError):
+        run(dlx[:, :, :-1].contiguous(), dly, mag, at)
+    with pytest.raises(ValueError):
+        run(dlx[0], dly[0], mag[0], at[0])
+    # more images than the rounds' grid holds (16 fields of each)
+    big = torch.zeros((4096, 1, 1), device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        run(big, big, big, torch.zeros((4096, 1), dtype=torch.int64, device=cuda_device))
+    run(dlx, dly, mag, at)
+
+
 @pytest.mark.cuda
 def test_frame_kernel_path_matches_plain_path(cuda_device, monkeypatch):
     """Five images-in frames of points, lines, wheel and GPS at B = 2 (a GPS
-    fix between two clones in the fourth): the kernel path launches LK once
-    and gate/Gram twice (points, lines) per frame and matches the path with
-    both plain versions."""
+    fix between two clones in the fourth): the kernel path launches LK once,
+    gate/Gram twice (points, lines) and the line run-length kernel once per
+    frame and matches the path with the three plain versions."""
     from plviwo_tpu_torch import examples
     from plviwo_tpu_torch.core import frame, step
     from plviwo_tpu_torch.core.layout import StateLayout
     from plviwo_tpu_torch.core.state import FilterState
-    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.ops import klt, line_detect, line_kernel, lk_kernel
     from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
 
     sim = Simulator(SimConfig(duration=3.0, n_landmarks=350, n_lines=40, seed=3))
@@ -319,12 +425,17 @@ def test_frame_kernel_path_matches_plain_path(cuda_device, monkeypatch):
             out.append(m)
         return st, out
 
-    before = (lk_kernel.lk_pyramid.launches, gram_gate.launches)
+    def launches():
+        return (lk_kernel.lk_pyramid.launches, gram_gate.launches,
+                line_kernel.reaches.launches)
+
+    before = launches()
     s1, m1 = run()
     torch.cuda.synchronize()
-    assert (lk_kernel.lk_pyramid.launches, gram_gate.launches) == (before[0] + 5, before[1] + 10)
+    assert launches() == (before[0] + 5, before[1] + 10, before[2] + 5)
     monkeypatch.setattr(frame.lk_kernel, "pyramidal_lk", klt.pyramidal_lk_conv)
     monkeypatch.setattr(step, "gram_gate", gram_gate_plain)
+    monkeypatch.setattr(line_kernel, "line_runlen", line_detect.runlen_reaches)
     s0, m0 = run()
     for a, b in zip(m1, m0):
         for k in ("tracked", "harvested", "accepted", "wheel_accepted", "line_tracked",
@@ -375,12 +486,13 @@ def test_frame_modes_kernel_path_matches_plain_path(cuda_device, monkeypatch, mo
     """Five images-in frames at B = 2 with points and wheel: stereo (two
     cameras, a right image a frame: two LK launches and one gate/Gram per
     frame) or dynamic cloning (sequence b clones where (frame + b) is even:
-    one LK and one gate/Gram); the kernel path matches the plain path."""
+    one LK and one gate/Gram), lines off (no run-length launch); the kernel
+    path matches the plain path."""
     from plviwo_tpu_torch import examples
     from plviwo_tpu_torch.core import frame, step
     from plviwo_tpu_torch.core.layout import StateLayout
     from plviwo_tpu_torch.core.state import FilterState
-    from plviwo_tpu_torch.ops import klt, lk_kernel
+    from plviwo_tpu_torch.ops import klt, line_kernel, lk_kernel
     from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
 
     stereo = mode == "stereo"
@@ -407,12 +519,13 @@ def test_frame_modes_kernel_path_matches_plain_path(cuda_device, monkeypatch, mo
             out.append(m)
         return st, ts, out
 
-    before = (lk_kernel.lk_pyramid.launches, gram_gate.launches)
+    before = (lk_kernel.lk_pyramid.launches, gram_gate.launches, line_kernel.reaches.launches)
     s1, ts1, m1 = run()
     torch.cuda.synchronize()
     lk_per_frame = 2 if stereo else 1
-    assert (lk_kernel.lk_pyramid.launches, gram_gate.launches) == (
-        before[0] + 5 * lk_per_frame, before[1] + 5)
+    assert (lk_kernel.lk_pyramid.launches, gram_gate.launches,
+            line_kernel.reaches.launches) == (before[0] + 5 * lk_per_frame, before[1] + 5,
+                                                  before[2])
     monkeypatch.setattr(frame.lk_kernel, "pyramidal_lk", klt.pyramidal_lk_conv)
     monkeypatch.setattr(step, "gram_gate", gram_gate_plain)
     s0, _, m0 = run()
@@ -747,7 +860,7 @@ def test_sharded_full_step_two_ranks_on_one_card(cuda_device):
     assert res[0]["dp"] < 1e-9 and res[0]["dcov"] < 1e-9
     for r in res:
         assert r["backend"] == "gloo" and r["device"] == str(cuda_device)
-        assert r["launches"] == {"lk_pyramid": 0, "msckf_gram_gate": 2}
+        assert r["launches"] == {"lk_pyramid": 0, "msckf_gram_gate": 2, "line_runlen": 0}
         assert r["agg"]["accepted"] > 0 and r["agg"]["lines_accepted"] > 0
 
 
@@ -772,14 +885,14 @@ def test_graphed_frame_matches_its_eager_body(cuda_device, monkeypatch, B):
     first frame's state and TrackState (has_prev false).  A key's first two
     calls run eagerly and the counter says so, its third captures, later
     ones replay.  Every output equals the eager body's bit for bit; every frame
-    launches LK once and gate/Gram twice, through the wrappers' module
-    names; what frame i returned and the arguments and results of its kernel
+    launches LK once, gate/Gram twice and the line run-length kernel once,
+    through the wrappers' module names; what frame i returned and the arguments and results of its kernel
     calls are unchanged after frame i + 1."""
     from plviwo_tpu_torch import examples
     from plviwo_tpu_torch.core import frame, step
     from plviwo_tpu_torch.core.layout import StateLayout
     from plviwo_tpu_torch.core.state import FilterState
-    from plviwo_tpu_torch.ops import lk_kernel
+    from plviwo_tpu_torch.ops import line_kernel, lk_kernel
     from plviwo_tpu_torch.sim.simulator import SimConfig, Simulator
     from plviwo_tpu_torch.utils import graphs
     from torch.utils import _pytree as pytree
@@ -822,11 +935,12 @@ def test_graphed_frame_matches_its_eager_body(cuda_device, monkeypatch, B):
         if i == 7:
             st, ts = st0, ts0
         before = dict(frame.fused_frame.graphs)
-        launches = (lk_kernel.lk_pyramid.launches, gram_gate.launches)
+        launches = (lk_kernel.lk_pyramid.launches, gram_gate.launches,
+                    line_kernel.reaches.launches)
         taps = []
         out = run(frame.fused_frame, st, ts, f, i >= 4)
-        assert (lk_kernel.lk_pyramid.launches - launches[0],
-                gram_gate.launches - launches[1]) == (1, 2), i
+        assert (lk_kernel.lk_pyramid.launches - launches[0], gram_gate.launches - launches[1],
+                line_kernel.reaches.launches - launches[2]) == (1, 2, 1), i
         assert len(taps) == 3, i
         calls, taps = taps, None
         kinds.append([k for k, v in frame.fused_frame.graphs.items() if v != before[k]])

@@ -242,7 +242,8 @@ def test_sharded_full_step_matches_one_process_and_jax(world2):
     steps = [r[1]["step"] for r in world2]
     assert steps[0]["bitwise"] and steps[0]["dp"] == 0.0 and steps[0]["dcov"] == 0.0
     assert all(s["backend"] == "gloo" and s["device"] == "cpu" for s in steps)
-    assert all(s["launches"] == {"lk_pyramid": 0, "msckf_gram_gate": 0} for s in steps)
+    assert all(s["launches"] == {"lk_pyramid": 0, "msckf_gram_gate": 0, "line_runlen": 0}
+               for s in steps)
     assert steps[0]["agg"] == steps[1]["agg"]
     b = _batch_args(_example_inputs_full(), 2, n_batched=16)
     _, jm = jax.jit(lambda *a: j_batched(*a, model=0, window_size=1.0))(
